@@ -8,8 +8,8 @@
 //   per (marker, turn, shift): tail-flip likelihoods
 //   (cnF2freq.cpp:5686-5752).
 // Fresh implementation of the same algorithm (not copied): a 3-generation
-// F2 analysis unit, 64 states, 128 paths, 8 shift modes. Used as the
-// denominator for the TPU speedup figure in bench.py.
+// F2 analysis unit, 64 states, 128 paths, 8 shift modes: a stand-in
+// single-core rate where the reference binary itself is not built.
 //
 // Build: g++ -O3 -march=native -ffast-math -o cpu_baseline cpu_baseline.cc
 

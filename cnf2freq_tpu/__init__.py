@@ -1,4 +1,4 @@
-"""cnf2freq_tpu: TPU-native pedigree-HMM framework.
+"""cnf2freq_tpu: a pedigree-HMM framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 cnettel/cnF2freq (PlantImpute): genotype/haplotype probability computation
@@ -14,31 +14,24 @@ __version__ = "0.1.0"
 
 
 def _enable_compilation_cache():
-    """Persistent jax compilation cache, on by default.
-
-    The TPU toolchain compiles some of this package's programs in
-    minutes (worst measured: a whole-scan program at 400+ s remote);
-    the persistent cache reuses them across processes (measured: 195 s
-    cold -> 4 s warm for a fresh process).  Opt out with
-    CNF2FREQ_NO_COMPILE_CACHE=1; an explicit JAX_COMPILATION_CACHE_DIR
-    or prior jax config wins."""
+    """Persistent jax compilation cache, on by default: the scan programs
+    take tens of seconds to compile, and the cache reuses them across
+    processes.  JAX_COMPILATION_CACHE_DIR (or a cache directory already
+    set in jax's config) wins; otherwise the cache lives at the fixed
+    path .jax_cache/ at the root of the checkout.  Opt out with
+    CNF2FREQ_NO_COMPILE_CACHE=1."""
     import os
     if os.environ.get("CNF2FREQ_NO_COMPILE_CACHE"):
         return
     if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
-    try:
-        import jax
-        if jax.config.jax_compilation_cache_dir:
-            return
-        path = os.path.join(os.path.expanduser("~"), ".cache",
-                            "cnf2freq_tpu", "jax")
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          2.0)
-    except Exception:       # jax absent/old: the cache is an optimisation
-        pass
+    import jax
+    if jax.config.jax_compilation_cache_dir:
+        return
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
 
 
 _enable_compilation_cache()

@@ -17,7 +17,7 @@ import numpy as np
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="cnf2freq_tpu",
-        description="TPU-native pedigree-HMM genotype/haplotype inference")
+        description="pedigree-HMM genotype/haplotype inference")
     p.add_argument("--mapfile", help="PlantImpute cM map file")
     p.add_argument("--pedfile", help="PlantImpute pedigree file")
     p.add_argument("--genfile", help="PlantImpute genotype file")
@@ -94,11 +94,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "JSON lines to this file; span summary on stderr")
     p.add_argument("--x64", dest="x64", action="store_true",
                    default=None,
-                   help="use float64 (default on CPU; TPUs emulate f64 "
-                   "in software — prefer --f32 there)")
+                   help="use float64 (default on CPU, where it matches the "
+                   "reference's precision; native but slower on a GPU)")
     p.add_argument("--f32", dest="x64", action="store_false",
-                   help="use float32 (TPU-fast mode; default when a "
-                   "TPU backend is detected)")
+                   help="use float32 (default on a GPU)")
     p.add_argument("--seed", type=int, default=0)
     return p
 
@@ -112,20 +111,14 @@ def main(argv=None) -> int:
         parser.error("--parentswap requires --flipmode negshift")
     import jax
     if args.x64 is None:
-        # default dtype by backend: f32 on accelerators (f64 is
-        # software-emulated on TPU, and x64-enabled processes hit an
-        # upstream Pallas trace recursion there), f64 on CPU where it
-        # is native and matches the reference's precision
+        # default dtype by backend: float64 on the CPU, where it matches
+        # the reference's precision; float32 on an accelerator, where the
+        # scan's Pallas kernels run (float64 takes the XLA forms there,
+        # ops/dispatch.py)
         args.x64 = jax.default_backend() == "cpu"
         if not args.x64:
             print("# accelerator backend detected: defaulting to "
-                  "float32 (pass --x64 to force float64)",
-                  file=sys.stderr)
-    elif args.x64 and jax.default_backend() != "cpu":
-        print("# WARNING: --x64 on an accelerator backend: float64 is "
-              "software-emulated on TPU — expect minutes-scale compiles "
-              "and orders-of-magnitude slowdown; --f32 is the native "
-              "mode", file=sys.stderr)
+                  "float32 (pass --x64 for float64)", file=sys.stderr)
     if args.x64:
         jax.config.update("jax_enable_x64", True)
 

@@ -22,6 +22,7 @@ from .hmm.forward_backward import combined_loglik, forward_backward
 from .hmm.probes import (haplo_stats, infprob_stats, phase_coherence,
                          posterior_weight, turn_weights_fast)
 from .hmm.transition import interval_recomb, transition_eigenvalues
+from .ops.dispatch import ScanPlan, full_f32, scan_plan
 
 
 class ScanResult(NamedTuple):
@@ -38,32 +39,14 @@ class ScanResult(NamedTuple):
     bw_f: jnp.ndarray
 
 
-def _stats_pallas_default(cfg: ModelConfig) -> bool:
-    import os
-    env = os.environ.get("CNF2FREQ_STATS_PALLAS")
-    if env is not None:
-        return env not in ("0", "false", "")
-    # 3.2x whole-iteration win on v5e (0.135 -> 0.042 s at B=1000,
-    # M=192); the XLA stats stage is the copy/fusion-bound bulk of the
-    # scan (bench/profile_parts.py)
-    return jax.default_backend() not in ("cpu",)
-
-
-def _scan_v2_default(cfg: ModelConfig) -> bool:
-    import os
-    env = os.environ.get("CNF2FREQ_SCAN_V2")
-    if env is not None:
-        return env not in ("0", "false", "")
-    return jax.default_backend() not in ("cpu",)
-
-
+@full_f32
 def chromosome_scan(fb: FamilyBatch, dists: jnp.ndarray, cfg: ModelConfig,
                     params: RuntimeParams, with_infprobs: bool = True,
-                    with_coherence: bool = False,
-                    use_stats_pallas: bool = None,
-                    use_scan_v2: bool = None, ratemat=None,
-                    n_variants: int = 1,
-                    probe_rules: bool = False) -> ScanResult:
+                    with_coherence: bool = False, ratemat=None,
+                    n_variants: int = 1, probe_rules: bool = False,
+                    plan: ScanPlan = None) -> ScanResult:
+    """One chromosome scan.  ``plan`` overrides the dispatch table's
+    choice of layout and kernels (ops/dispatch.py)."""
     if cfg.selfing or cfg.relskewstates:
         # extended state spaces run the dedicated (V, state)-factored
         # pipeline; probe-dedup rules don't apply there (the reference
@@ -92,55 +75,21 @@ def chromosome_scan(fb: FamilyBatch, dists: jnp.ndarray, cfg: ModelConfig,
                                    with_infprobs=with_infprobs,
                                    ratemat=ratemat,
                                    with_coherence=with_coherence)
-    if use_scan_v2 is None:
-        use_scan_v2 = _scan_v2_default(cfg)
-    stats_dtype_ok_v2 = (fb.ms.dtype == jnp.float32
-                         or jax.default_backend() == "cpu")
-    if use_scan_v2 and with_infprobs and not with_coherence \
-            and cfg.numslots == 7 and cfg.numtypes == 64 \
-            and cfg.numshifts == 8 and stats_dtype_ok_v2:
-        # feature-leading layout pipeline (ops/scan_v2.py): emissions
-        # recomputed in VMEM, batch on the lane axis, zero-copy stats
+    if plan is None:
+        plan = scan_plan(fb.ms.dtype)
+    if plan.layout == "v2" and with_infprobs and cfg.numslots == 7 \
+            and cfg.numtypes == 64 and cfg.numshifts == 8:
+        # feature-leading layout pipeline (ops/scan_v2.py)
         from .ops.scan_v2 import chromosome_scan_v2
-        return chromosome_scan_v2(fb, dists, cfg, params,
-                                  interpret=jax.default_backend() == "cpu",
-                                  ratemat=ratemat,
+        return chromosome_scan_v2(fb, dists, cfg, params, ratemat=ratemat,
                                   probe_rules=probe_rules,
-                                  n_variants=n_variants)
+                                  n_variants=n_variants,
+                                  with_coherence=with_coherence, plan=plan)
     blocks = build_blocks(fb, cfg, dtype=fb.ms.dtype)
     e = assemble_e_all(blocks, cfg)
     fbres = forward_backward(e, dists, cfg, params, ratemat=ratemat)
     total = combined_loglik(fbres, fb.shiftignore)
     B, M = fb.md.shape[0], fb.md.shape[2]
-    if use_stats_pallas is None:
-        use_stats_pallas = _stats_pallas_default(cfg)
-    # Mosaic has no f64 lowering; CPU runs use interpret mode where any
-    # dtype is fine
-    stats_dtype_ok = (fb.ms.dtype == jnp.float32
-                      or jax.default_backend() == "cpu")
-    if use_stats_pallas and with_infprobs and cfg.numslots == 7 \
-            and stats_dtype_ok:
-        # fused single-pass kernel over (b, m) tiles (ops/stats_pallas.py)
-        from .hmm.probes import haplo_update_mask
-        from .ops.stats_pallas import stats_pallas
-        b12, inf_accum, pair = stats_pallas(
-            fb, fbres.fw_pre, fbres.bw, fbres.fw_pre_f, fbres.bw_f,
-            total, cfg, interpret=jax.default_backend() == "cpu",
-            probe_rules=probe_rules, n_variants=n_variants)
-        hmask = haplo_update_mask(fb, cfg)
-        turn_w = turn_weights_fast(fbres, fb, cfg)
-        if with_coherence:
-            lam = transition_eigenvalues(
-                cfg, interval_recomb(cfg, params, dists,
-                                     ratemat=ratemat)).astype(e.dtype)
-            coh = phase_coherence(fbres, blocks, fb, cfg, lam)
-        else:
-            coh = jnp.full((B, M, cfg.numslots), 0.5, dtype=e.dtype)
-        return ScanResult(total=total, haplo_b12=b12, haplo_mask=hmask,
-                          inf_accum=inf_accum, pair=pair,
-                          turn_weight=turn_w, coherence=coh,
-                          fw_pre=fbres.fw_pre, bw=fbres.bw,
-                          fw_pre_f=fbres.fw_pre_f, bw_f=fbres.bw_f)
     W = posterior_weight(fbres, total, fb.shiftignore)
     # collapse each parent branch against the posterior once per probe
     # dedup variant; shared by the haplo and infprob contractions.
@@ -290,7 +239,7 @@ def make_jitted_line_origin(cfg: ModelConfig, params: RuntimeParams):
             e = nohaplo_emission(fb, cfg, ci=cfg.correction_inference,
                                  dtype=dtype)
             fbres = forward_backward(e, dists, cfg, params,
-                                     use_pallas=False, ratemat=ratemat)
+                                     ratemat=ratemat)
             total = combined_loglik(fbres, fb.shiftignore)
             post = posterior_weight(fbres, total, fb.shiftignore) * e
             return nohaplo_line_origin(fb, cfg, post[:, :, 0])

@@ -352,36 +352,8 @@ def chromosome_scan_ng2(fb: FamilyBatch, dists: jnp.ndarray,
     B, M = fb.md.shape[0], fb.md.shape[2]
     froot, P2, top, focal_attop = ng2_blocks(fb, cfg, dtype=dtype)
     e = assemble_e_ng2(froot, P2, top, focal_attop, fb, cfg)
-    if jax.default_backend() != "cpu":
-        # X-layout sweeps: the joint (shift, state) axis X = 8 rides the
-        # sublanes and the batch rides the 128-wide lane axis — the
-        # [B, M, 2, 4] state-minor layout would waste 31/32 of every
-        # vector register (measured 2.4x SLOWER than even the embedded
-        # 64-state v2 pipeline); in X-layout the dedicated engine is
-        # where the 16x state-work saving actually lands
-        from .ops.scan_v2 import fb_scan_v2
-        from .hmm.forward_backward import FBResult
-        NS, S = cfg.numshifts, cfg.numtypes
-        R = -(-B // 128) * 128
-        e_x = jnp.pad(jnp.transpose(e, (1, 2, 3, 0)).reshape(
-            M, NS * S, B), ((0, 0), (0, 0), (0, R - B)))
-        fb2 = fb_scan_v2(e_x, dists, cfg, params, ratemat=ratemat)
-
-        def to_std(x):
-            return jnp.transpose(x[:, :, :B], (2, 0, 1)).reshape(
-                B, M, NS, S)
-
-        def to_std_f(x):
-            return jnp.transpose(x[:, :, :B], (2, 0, 1))
-
-        fbres = FBResult(fw_pre=to_std(fb2.fw_pre),
-                         fw_post=to_std(fb2.fw_post), bw=to_std(fb2.bw),
-                         fw_pre_f=to_std_f(fb2.fw_pre_f),
-                         fw_post_f=to_std_f(fb2.fw_post_f),
-                         bw_f=to_std_f(fb2.bw_f))
-    else:
-        fbres = forward_backward(e, dists, cfg, params, use_pallas=False,
-                                 ratemat=ratemat)
+    # the standard [B, M, NS, S] layout on every backend (ops/dispatch.py)
+    fbres = forward_backward(e, dists, cfg, params, ratemat=ratemat)
     total = combined_loglik(fbres, fb.shiftignore)
     W = posterior_weight(fbres, total, fb.shiftignore)
 
@@ -422,12 +394,9 @@ def make_jitted_scan_merged_ng2(cfg: ModelConfig, params: RuntimeParams,
     """The numgen==2 form of engine.make_jitted_scan_merged, split into
     TWO compiled programs at the sweep/statistics boundary.
 
-    Each half compiles in seconds, but XLA's fusion search over the
-    combined program (the M-step scan feeding four statistics
-    consumers) takes 400-1500 s on the TPU toolchain (measured at
-    B=1024, M=192; an optimization_barrier made it WORSE).  The split
-    costs one extra dispatch per chunk — noise against a 25x compile
-    saving, and the device time per scan is ~0.1 ms anyway."""
+    XLA's fusion search over the combined program (the M-step scan
+    feeding four statistics consumers) is far slower than over the two
+    halves; the split costs one extra dispatch per chunk."""
     from .engine import ScanResult
     from .hmm.forward_backward import combined_loglik, forward_backward
     from .hmm.probes import posterior_weight, turn_weights_fast
@@ -440,34 +409,9 @@ def make_jitted_scan_merged_ng2(cfg: ModelConfig, params: RuntimeParams,
     @jax.jit
     def part1(fb, dists, lut, ratemat):
         dtype = fb.ms.dtype
-        B, M = fb.md.shape[0], fb.md.shape[2]
         froot, P2, top, focal_attop = ng2_blocks(fb, cfg, dtype=dtype)
         e = assemble_e_ng2(froot, P2, top, focal_attop, fb, cfg)
-        if jax.default_backend() != "cpu":
-            from .hmm.forward_backward import FBResult
-            from .ops.scan_v2 import fb_scan_v2
-            NS, S = cfg.numshifts, cfg.numtypes
-            R = -(-B // 128) * 128
-            e_x = jnp.pad(jnp.transpose(e, (1, 2, 3, 0)).reshape(
-                M, NS * S, B), ((0, 0), (0, 0), (0, R - B)))
-            fb2 = fb_scan_v2(e_x, dists, cfg, params, ratemat=ratemat)
-
-            def to_std(x):
-                return jnp.transpose(x[:, :, :B], (2, 0, 1)).reshape(
-                    B, M, NS, S)
-
-            def to_std_f(x):
-                return jnp.transpose(x[:, :, :B], (2, 0, 1))
-
-            fbres = FBResult(fw_pre=to_std(fb2.fw_pre),
-                             fw_post=to_std(fb2.fw_post),
-                             bw=to_std(fb2.bw),
-                             fw_pre_f=to_std_f(fb2.fw_pre_f),
-                             fw_post_f=to_std_f(fb2.fw_post_f),
-                             bw_f=to_std_f(fb2.bw_f))
-        else:
-            fbres = forward_backward(e, dists, cfg, params,
-                                     use_pallas=False, ratemat=ratemat)
+        fbres = forward_backward(e, dists, cfg, params, ratemat=ratemat)
         total = combined_loglik(fbres, fb.shiftignore)
         W = posterior_weight(fbres, total, fb.shiftignore)
         b12 = haplo_stats_ng2(W, froot, P2, fb, cfg)

@@ -241,8 +241,7 @@ def chromosome_scan_nohaplo(fb: FamilyBatch, dists: jnp.ndarray,
     B, M = fb.md.shape[0], fb.md.shape[2]
     ci = cfg.correction_inference
     e = nohaplo_emission(fb, cfg, ci=ci, dtype=dtype)
-    fbres = forward_backward(e, dists, cfg, params, use_pallas=False,
-                             ratemat=ratemat)
+    fbres = forward_backward(e, dists, cfg, params, ratemat=ratemat)
     total = combined_loglik(fbres, fb.shiftignore)
     # state posterior: the probe value exp(probe - factor) equals
     # W[g] * E[g] (posterior_weight is the emission multiplier)

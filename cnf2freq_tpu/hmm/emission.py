@@ -408,7 +408,7 @@ def _canonical_only(dtype):
 
 def assemble_e_all(blocks: EmissionBlocks, cfg: ModelConfig) -> jnp.ndarray:
     """E_all[b, m, s, g] from factored blocks (path axes summed) — shift
-    second-minor, state g MINOR (the TPU lane axis of the sweeps)."""
+    second-minor, state g minor."""
     s0 = blocks.pb[0].sum(axis=-2)
     s1 = blocks.pb[1].sum(axis=-2)
     e = jnp.einsum("...rt,...rau,...rbv->...vutba", blocks.froot, s0, s1)

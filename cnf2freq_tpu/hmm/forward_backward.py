@@ -24,7 +24,7 @@ from .transition import (apply_transition, interval_recomb,
 
 
 class FBResult(NamedTuple):
-    fw_pre: jnp.ndarray    # [B, M, NS, S] (state minor: TPU lane axis)
+    fw_pre: jnp.ndarray    # [B, M, NS, S] (state minor)
     fw_post: jnp.ndarray   # [B, M, NS, S]
     bw: jnp.ndarray        # [B, M, NS, S]
     fw_pre_f: jnp.ndarray  # [B, M, NS] log normalisers
@@ -53,32 +53,14 @@ def _emit_normalise(p, e, logf):
 
 def forward_backward(e_all: jnp.ndarray, dists: jnp.ndarray,
                      cfg: ModelConfig, params: RuntimeParams,
-                     use_pallas: bool = None,
-                     pallas_interpret: bool = False,
                      ratemat=None) -> FBResult:
     """e_all: [B, M, NS, S] emission tensors; dists: [M-1] interval cM.
 
-    use_pallas: run the sweeps in the fused Pallas kernel (default: on
-    TPU backends when the state space is the MXU-friendly 64).
     ratemat: optional [M-1, typebits] map rates (transition.rate_matrix)."""
     B, M, NS, S = e_all.shape
     dtype = e_all.dtype
     r = interval_recomb(cfg, params, dists, ratemat=ratemat)
     lam = transition_eigenvalues(cfg, r).astype(dtype)      # [M-1, S]
-
-    if use_pallas is None:
-        import os
-        # The XLA scan currently beats the fused kernel on v5e (the
-        # sweeps are ~8% of scan time; measured in STATUS.md).  The
-        # kernel stays available for explicit use/benchmarking.
-        env = os.environ.get("CNF2FREQ_FB_PALLAS")
-        use_pallas = env is not None and env not in ("0", "false", "")
-    if use_pallas:
-        from ..ops.fb_pallas import fb_sweeps_pallas
-        fw_pre, fw_post, bw, fw_pre_f, fw_post_f, bw_f = \
-            fb_sweeps_pallas(e_all, lam, interpret=pallas_interpret)
-        return FBResult(fw_pre=fw_pre, fw_post=fw_post, bw=bw,
-                        fw_pre_f=fw_pre_f, fw_post_f=fw_post_f, bw_f=bw_f)
     lam_pad = jnp.concatenate([lam, jnp.ones((1, S), dtype=dtype)], axis=0)
 
     e_scan = jnp.moveaxis(e_all, 1, 0)                      # [M, B, S, NS]

@@ -410,7 +410,7 @@ def turn_weights_fast(fbres: FBResult, fb: FamilyBatch, cfg: ModelConfig,
     with fw' = fw_post * exp(fw_post_f - max), bw' = bw * exp(bw_f - max)
     (the per-(b, m) max factors cancel in the weight ratio against the
     no-flip turn).  An xor-correlation diagonalises under the WHT, so all
-    NUMTYPES*NS offsets cost three MXU matmuls — replacing the per-mask
+    NUMTYPES*NS offsets cost three matmuls — replacing the per-mask
     gathers and the [B, M, T, NS] raw materialisation of ``turn_scores``
     (numerically equal where weights are finite; tests/test_probes.py).
     """
@@ -797,7 +797,7 @@ def recombination_expectations(fbres: FBResult, e_all: jnp.ndarray,
     x_ = fbres.fw_post[:, :-1]                        # [B,M-1,NS,S]
     y_ = e_all[:, 1:] * fbres.bw[:, 1:]
     # xor-correlation Z[x] = sum_g X[g] Y[g^x] = H( H(X) * H(Y) ) / S
-    # (H symmetric, state minor: plain matmuls on the lane axis)
+    # (H symmetric, state minor: plain matmuls on the last axis)
     z = (((x_ @ H) * (y_ @ H)) @ H) / S               # [B,M-1,NS,S]
     # weight each shift mode by its posterior factor share
     logw = fbres.fw_post_f[:, :-1] + fbres.bw_f[:, 1:]

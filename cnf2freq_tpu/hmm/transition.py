@@ -3,9 +3,9 @@
 The reference builds, per marker interval, a per-xor-mask weight table and
 applies a dense S x S update ``probs2[to] += probs[from] * R[from ^ to]``
 (cnF2freq.cpp:2276-2364).  An xor-kernel convolution diagonalises under the
-Walsh-Hadamard transform, so on TPU we apply it as two S x S matmuls with a
-*shared* Hadamard matrix (MXU-friendly, no per-interval matrices) around a
-per-interval elementwise scale:
+Walsh-Hadamard transform, so we apply it as two S x S matmuls with a
+*shared* Hadamard matrix (no per-interval matrices) around a per-interval
+elementwise scale:
 
     p' = H ( (H p) * what ) / S,   what[idx] = prod_t (1 - 2 r_t)^bit_t(idx)
 
@@ -88,9 +88,9 @@ def transition_eigenvalues(cfg: ModelConfig, r: jnp.ndarray) -> jnp.ndarray:
 
 
 def apply_transition(probs: jnp.ndarray, what: jnp.ndarray) -> jnp.ndarray:
-    """probs [..., S] (state MINOR — TPU lane axis, so the two Hadamard
-    contractions are plain [rows, S] @ [S, S] MXU matmuls) convolved with
-    the kernel whose WHT is what [..., S] (broadcast over leading axes)."""
+    """probs [..., S] (state minor, so the two Hadamard contractions are
+    plain [rows, S] @ [S, S] matmuls) convolved with the kernel whose WHT
+    is what [..., S] (broadcast over leading axes)."""
     S = probs.shape[-1]
     H = jnp.asarray(hadamard(int(S).bit_length() - 1,
                              str(probs.dtype)))

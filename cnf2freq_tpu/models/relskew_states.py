@@ -8,7 +8,7 @@ becomes part of the state and switches between adjacent markers pay a
 coherence factor ``relscore = (relhaplo, 1 - relhaplo)`` keyed on the
 bit's xor (realanalyze, cnF2freq.cpp:2343-2362).
 
-TPU design: the coherence factor is an xor kernel on one extra bit, so
+Design: the coherence factor is an xor kernel on one extra bit, so
 the whole extended transition stays one Walsh-Hadamard diagonalised
 convolution over ``2 * numtypes`` states — the extra bit's eigenvalue is
 ``2*relhaplo - 1``, per individual and per interval.  Emissions are the

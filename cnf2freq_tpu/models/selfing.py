@@ -8,7 +8,7 @@ interpretation slot 0 / 1.  The double-bit value 3 is invalid
 (``VALIDSELFNUMTYPES``, settings.h:46), so the full space is
 ``3 * numtypes`` states.
 
-TPU design: the self axis is a *separate* tensor axis of size 3 — the
+Design: the self axis is a *separate* tensor axis of size 3 — the
 base-state transition stays the shared Walsh-Hadamard xor convolution
 (transition.py) and the HBD transition is one tiny 3x3 matmul per step,
 i.e. a Kronecker-factored transition instead of the reference's dense

@@ -1,41 +1,28 @@
-"""Pallas TPU kernel: fused posterior update statistics.
+"""Posterior update statistics with the enum axes leading.
 
-The XLA form of the stats stage (posterior_weight -> side_collapse ->
-haplo_stats / infprob_stats in hmm/probes.py) compiles to ~100 separate
-fusions, each a full HBM pass over [B*M, O(512)] intermediates, plus
-layout copies — ~125 ms of a ~150 ms chromosome scan on v5e at B=1000,
-M=192 while the underlying arithmetic is ~2 GFLOP.
+The statistics stage of the standard path (posterior_weight ->
+side_collapse -> haplo_stats / infprob_stats in hmm/probes.py) keeps the
+enumeration axes trailing.  ``stats_tile`` computes the same quantities
+with every enumeration axis LEADING and the data axes trailing:
 
-This kernel computes the whole stage in one pass over (b, m) tiles:
-
-    slot data (md/ms/hw/exists/attop: ~50 scalars per bm)
-    fw_pre, bw, factors (the only large operands: 512+512+16 per bm)
+    slot data (md/ms/hw/exists/attop: ~50 scalars per unit and marker)
+    fw_pre, bw, log factors (512 + 512 + 16 per unit and marker)
       |
-      v  one grid step per tile of 8*128 bm pairs, everything in VMEM
-    emission blocks -> posterior weight -> side collapses ->
-    haplo b12 [7,2] + infprob accum [7,2,2] + pair [2,2] per bm
+      v  emission blocks -> posterior weight -> side collapses ->
+    haplo b12 [7,2] + infprob accum [7,2,2] + pair [2,2] per data point
 
-Layout: enum axes LEADING, the bm tile on the trailing (8, 128) vreg
-dims.  Every enum configuration is one f32 vreg; enum-axis broadcasts
-and reductions are plain vector ops with no layout shuffles (the
-trailing-minor enum layout of the XLA path is what generates its copy
-storm).  The emission-block math mirrors hmm/emission.py (reference
-semantics: trackpossible, cnF2freq.cpp:1075-1359) with enum axes
-prepended instead of appended, specialised to the engine's standard
-probe configuration (zp == ZP_NONE, ci == False, update == 0);
+so it reads the feature-leading sweep tensors of ops/scan_v2.py without
+transposing their data axes.  The emission-block math mirrors
+hmm/emission.py (reference semantics: trackpossible,
+cnF2freq.cpp:1075-1359), specialised to the engine's standard probe
+configuration (zp == ZP_NONE, ci == False, update == 0);
 tests/test_stats_pallas.py pins the two implementations together.
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
 from ..config import SEXMARKER, UNKNOWN, ModelConfig
 
 # ---------------------------------------------------------------------------
@@ -49,8 +36,7 @@ DATA_ND = 2
 
 
 def _eL(name: str):
-    """Enum index array built in-trace (Pallas kernels may not capture
-    array constants)."""
+    """Enum index array along one enum axis."""
     shape = [1] * (_NAX + DATA_ND)
     shape[_AXL[name]] = 2
     return jax.lax.broadcasted_iota(jnp.int32, tuple(shape), _AXL[name])
@@ -247,8 +233,8 @@ def root_block_L(focal: SlotL, haplotyping: bool = True, inval=None,
 def _rule_factors_tile(md, ms, exists, empty, dupf, cfg: ModelConfig,
                        dtype):
     """Probe-survival factors for ignoreflag2 rules 2-3
-    (cnF2freq.cpp:3462-3496) on in-VMEM tile operands; the kernel form
-    of hmm.probes.probe_rule_factors (same algebra, enum axes leading).
+    (cnF2freq.cpp:3462-3496): hmm.probes.probe_rule_factors with the
+    enum axes leading (same algebra).
 
     empty [7,*T] int32 (1 = genotype-less member outside fixtrees'
     relmap); dupf [7,*T] int32 (this variant's duplicate-pair sign
@@ -289,7 +275,7 @@ def _rule_factors_tile(md, ms, exists, empty, dupf, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
-# The tile computation (pure jnp — runs in-kernel and in tests)
+# The statistics over any trailing data axes
 # ---------------------------------------------------------------------------
 def stats_tile(md, ms, hw, exists, attop, f2ig, shig, fw_pre, bw,
                fw_pre_f, bw_f, total, cfg: ModelConfig,
@@ -385,9 +371,6 @@ def stats_tile(md, ms, hw, exists, attop, f2ig, shig, fw_pre, bw,
         for r in range(2):
             for t in range(2):
                 # PBm[k][r]: [f,p,s,*T]; Tk[r, :, :, t]: [f,s,*T]
-                # (int and None indices must not share one bracket: that
-                # falls off the slice fast path onto a >2D lax.gather,
-                # which Mosaic cannot lower)
                 Y = Y + froot[r, t] * PBm[k][r] * Tk[r, :, :, t][:, None]
         fi = _iota((8, 1, 1) + (1,) * DATA_ND, 0)
         pi = _iota((1, 8, 1) + (1,) * DATA_ND, 1)
@@ -405,8 +388,7 @@ def stats_tile(md, ms, hw, exists, attop, f2ig, shig, fw_pre, bw,
     b12 = jnp.stack(b12_list, axis=0)                        # [7, 2, *T]
 
     # ---- infprob stats ------------------------------------------------
-    # accumulate into a Python grid and stack at the end: .at[].add is a
-    # scatter-add, which Mosaic cannot lower even for static indices
+    # accumulate into a Python grid and stack at the end
     zero = jnp.zeros(T, dtype=dtype)
     acc_g = [[[zero, zero], [zero, zero]] for _ in range(cfg.numslots)]
     P0mv, P1mv = [], []
@@ -425,8 +407,7 @@ def stats_tile(md, ms, hw, exists, attop, f2ig, shig, fw_pre, bw,
         for mvi in range(2):
             sh = _safe_div(us[mvi], den)
             if side == 1:
-                # align r' = 1 - r to the r axis (no [::-1]: Mosaic has
-                # no lowering for the rev primitive)
+                # align r' = 1 - r to the r axis
                 sh = jnp.stack([sh[1], sh[0]], axis=0)
 
             Tk = T1 if side == 0 else T0
@@ -496,152 +477,4 @@ def stats_tile(md, ms, hw, exists, attop, f2ig, shig, fw_pre, bw,
     accum = jnp.stack([jnp.stack([jnp.stack(wrow, axis=0)
                                   for wrow in slotrow], axis=0)
                        for slotrow in acc_g], axis=0)        # [7, 2, 2,*T]
-    return b12, accum, pair
-
-
-# ---------------------------------------------------------------------------
-# Kernel + host wrapper
-# ---------------------------------------------------------------------------
-_TS, _TL = 8, 128          # tile = 8 sublanes x 128 lanes of bm pairs
-_TN = _TS * _TL
-
-
-def _kernel(md_ref, ms_ref, hw_ref, ex_ref, at_ref, em_ref, df_ref,
-            f2_ref, sh_ref,
-            fwp_ref, bw_ref, fwf_ref, bwf_ref, tot_ref,
-            b12_ref, acc_ref, pair_ref, *, cfg: ModelConfig,
-            rules: bool = False):
-    T = (_TS, _TL)
-    md = md_ref[:].reshape((7, 2) + T)
-    ms = ms_ref[:].reshape((7, 2) + T)
-    hw = hw_ref[:].reshape((7,) + T)
-    exists = ex_ref[:].reshape((7,) + T) != 0
-    attop = at_ref[:].reshape((7,) + T) != 0
-    empty = em_ref[:].reshape((7,) + T) if rules else None
-    dupf = df_ref[:].reshape((7,) + T) if rules else None
-    f2ig = f2_ref[:].reshape(T)
-    shig = sh_ref[:].reshape(T)
-    # feature index is shift-major (ns*64 + g: the cheap block-transpose
-    # of the [B, M, NS, S] sweep layout); relabel the enum axes to the
-    # kernel's flag-major order — leading-axis transposes move no lanes
-    fw_pre = jnp.transpose(
-        fwp_ref[:].reshape((2, 2, 2, 8, 8) + T),
-        (3, 4, 0, 1, 2) + tuple(range(5, 5 + len(T))))
-    bw = jnp.transpose(
-        bw_ref[:].reshape((2, 2, 2, 8, 8) + T),
-        (3, 4, 0, 1, 2) + tuple(range(5, 5 + len(T))))
-    fw_pre_f = fwf_ref[:].reshape((2, 2, 2) + T)
-    bw_f = bwf_ref[:].reshape((2, 2, 2) + T)
-    total = tot_ref[:].reshape(T)
-
-    b12, accum, pair = stats_tile(md, ms, hw, exists, attop, f2ig, shig,
-                                  fw_pre, bw, fw_pre_f, bw_f, total, cfg,
-                                  empty=empty, dupf=dupf)
-    b12_ref[:] = b12.reshape(b12_ref.shape)
-    acc_ref[:] = accum.reshape(acc_ref.shape)
-    pair_ref[:] = pair.reshape(pair_ref.shape)
-
-
-def _to_tiles(x, n_orig, nt):
-    """[lead, N] -> [lead, nt, TS, TL] zero-padded."""
-    lead = x.shape[0]
-    pad = nt * _TN - n_orig
-    if pad:
-        x = jnp.pad(x, ((0, 0), (0, pad)))
-    return x.reshape(lead, nt, _TS, _TL)
-
-
-@functools.partial(jax.jit, static_argnames=("cfg", "interpret",
-                                              "probe_rules", "n_variants"))
-def stats_pallas(fb, fw_pre, bw, fw_pre_f, bw_f, total,
-                 cfg: ModelConfig, interpret: bool = False,
-                 probe_rules: bool = False, n_variants: int = 1):
-    """Fused stats for the standard F2 engine.
-
-    fb: FamilyBatch ([B, 7, M, ...] arrays); fw_pre/bw [B, M, NS, S]
-    (state minor — the transpose to tiles is then a contiguous
-    512-float block copy per (b, m) pair); fw_pre_f/bw_f [B, M, NS];
-    total [B].
-    probe_rules: apply the ignoreflag2 rule 2-3 probe-dedup factors
-    (cnF2freq.cpp:3462-3496); n_variants > 1 averages the duplicate-
-    member sign variants (see hmm.probes.probe_rule_factors).
-    Returns (b12 [B,M,7,2], accum [B,M,7,2,2], pair [B,M,2,2])."""
-    B, _, M, _ = fb.md.shape
-    N = B * M
-    nt = -(-N // _TN)
-    dtype = fw_pre.dtype
-
-    md = _to_tiles(jnp.transpose(fb.md, (1, 3, 0, 2)).reshape(14, N), N, nt)
-    ms = _to_tiles(jnp.transpose(fb.ms.astype(dtype),
-                                 (1, 3, 0, 2)).reshape(14, N), N, nt)
-    hw = _to_tiles(jnp.transpose(fb.hw.astype(dtype),
-                                 (1, 0, 2)).reshape(7, N), N, nt)
-
-    def bcast7(x):      # [B, 7] -> [7, nt, TS, TL] over the marker axis
-        return _to_tiles(jnp.broadcast_to(
-            x.astype(jnp.int32).T[:, :, None], (7, B, M)).reshape(7, N),
-            N, nt)
-
-    ex = bcast7(fb.exists)
-    at = bcast7(fb.attop)
-    em = bcast7(fb.emptyslot)
-    f2 = _to_tiles(jnp.broadcast_to(
-        fb.flag2ignore[:, None], (B, M)).reshape(1, N), N, nt)[0]
-    sh = _to_tiles(jnp.broadcast_to(
-        fb.shiftignore[:, None], (B, M)).reshape(1, N), N, nt)[0]
-    fwp = _to_tiles(jnp.transpose(fw_pre, (2, 3, 0, 1)).reshape(512, N),
-                    N, nt)
-    bwt = _to_tiles(jnp.transpose(bw, (2, 3, 0, 1)).reshape(512, N), N, nt)
-    fwf = _to_tiles(jnp.transpose(fw_pre_f, (2, 0, 1)).reshape(8, N), N, nt)
-    bwf = _to_tiles(jnp.transpose(bw_f, (2, 0, 1)).reshape(8, N), N, nt)
-    tot = _to_tiles(jnp.broadcast_to(total[:, None], (B, M)).reshape(1, N),
-                    N, nt)[0]
-
-    def spec(lead):
-        if lead == 0:
-            return pl.BlockSpec((1, _TS, _TL), lambda i: (i, 0, 0),
-                                memory_space=pltpu.VMEM)
-        return pl.BlockSpec((lead, 1, _TS, _TL), lambda i: (0, i, 0, 0),
-                            memory_space=pltpu.VMEM)
-
-    out_shape = (
-        jax.ShapeDtypeStruct((14, nt, _TS, _TL), dtype),    # b12 [7*2]
-        jax.ShapeDtypeStruct((28, nt, _TS, _TL), dtype),    # accum [7*2*2]
-        jax.ShapeDtypeStruct((4, nt, _TS, _TL), dtype),     # pair [2*2]
-    )
-    call = pl.pallas_call(
-        functools.partial(_kernel, cfg=cfg, rules=probe_rules),
-        grid=(nt,),
-        in_specs=[spec(14), spec(14), spec(7), spec(7), spec(7),
-                  spec(7), spec(7),
-                  spec(0), spec(0), spec(512), spec(512), spec(8), spec(8),
-                  spec(0)],
-        out_specs=(spec(14), spec(28), spec(4)),
-        out_shape=out_shape,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",),
-            # ~24 MB of scoped VMEM live per tile (W + per-side blocks +
-            # share tensors); the 16 MB default is too tight, v5e has 128
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )
-
-    outs = []
-    for v in range(n_variants if probe_rules else 1):
-        df = bcast7(fb.dup_flip[:, v]) if probe_rules else em
-        outs.append(call(md, ms, hw, ex, at, em, df, f2, sh,
-                         fwp, bwt, fwf, bwf, tot))
-    nv = len(outs)
-    b12t, acct, pairt = (sum(parts) / nv for parts in zip(*outs))
-
-    def back(x, shape):
-        lead = x.shape[0]
-        x = x.reshape(lead, nt * _TN)[:, :N]
-        x = x.reshape(shape + (B, M))
-        nl = len(shape)
-        return jnp.transpose(x, (nl, nl + 1) + tuple(range(nl)))
-
-    b12 = back(b12t, (7, 2))
-    accum = back(acct, (7, 2, 2))
-    pair = back(pairt, (2, 2))
     return b12, accum, pair

@@ -1,38 +1,34 @@
-"""Feature-leading chromosome scan (the zero-marshalling hot path).
+"""Feature-leading chromosome scan: the F2 scan on the GPU.
 
-The standard path materialises the factored emission blocks (2 x 393 MB
-at B=1000, M=192), assembles E from them, scans in [B, M, NS, S] layout
-(whose (8, 64) minor dims pad to (8, 128) vregs — 2x physical HBM), and
-transposes three sweep tensors into (b, m)-tile layout for the fused
-stats kernel.  Those copies and padding, not arithmetic, dominate the
-iteration (bench/trace_scan.py).
+The standard path (engine.chromosome_scan) keeps the state axis minor,
+[B, M, NS, S].  This module keeps the batch minor instead, so every
+sweep tensor is [M, X = NS * S, R] with R the batch padded to a whole
+number of kernel lane blocks (ops/dispatch.LANE_BLOCK).  A warp then
+reads 32 consecutive units of one (marker, state) row — coalesced — and
+each (shift block, unit) chain of the forward-backward recursion is an
+independent column:
 
-This module replaces the data layout end to end:
-
-    slot tensors [7, ..., M, R]   (R = batch padded to 8*128 tiles)
-      | emission_tiles (Pallas): blocks recomputed in VMEM from ~50
-      |   scalars per (b, m) — nothing bigger than E ever exists
+    slot tensors [7, ..., M, R]
+      | emissions_v2 (XLA): the factored emission blocks evaluated on
+      |   whole arrays from ~50 scalars per (unit, marker)
       v
-    e  [M, X=512, R]              (feature-leading, batch on lanes)
-      | fb_sweeps_v2_pallas (Pallas, TPU default): carry in VMEM
-      |   across the marker grid, butterfly-FWHT transitions in full
-      |   f32; fb_scan_v2 (lax.scan) is the XLA fallback/spec
+    e  [M, X, R]
+      | fb_sweeps_v2_triton (Pallas/Triton, float32 on the GPU): one
+      |   program per (shift block, lane block), the [S, lanes] carry
+      |   in registers across a loop over markers; fb_scan_v2 (lax.scan)
+      |   is the XLA form and the specification
       v
-    fw_pre/bw [M, X, R], factors [M, NS, R]
-      | stats kernel reads (m, b-tile) blocks straight out of the scan
-      |   outputs via BlockSpec index maps — no transposes at all;
-      | turn_weights_v2_pallas: weighted xor-correlation at the 128
-      |   turn offsets in one fused pass
+    fw_pre / fw_post / bw [M, X, R], log factors [M, NS, R]
+      | stats_from_v2 (XLA): update statistics, enum axes leading
+      | turn_weights_v2 (XLA): posterior-weighted xor-correlation at
+      |   the turn offsets
       v
     b12 / infprob accum / pair / turn weights
 
 Same update statistics as engine.chromosome_scan (pinned by
-tests/test_scan_v2.py; the Pallas forms are exact against the XLA
-forms in f64 interpret mode).  See docs/PERFORMANCE.md for the
-traffic analysis behind the kernel choices; the linear-memory /
-temporal-parallel HMM literature (PAPERS.md) motivates the stored
-fw/bw + per-marker factor scheme and the marker-axis blocking left as
-future work for extreme chromosome lengths.
+tests/test_scan_v2.py).  Which form each stage takes is decided in
+ops/dispatch.py.  Every float32 contraction here asks for full float32
+precision (no TF32).
 """
 
 from __future__ import annotations
@@ -44,69 +40,67 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from ..config import MINFACTOR, ModelConfig, RuntimeParams
 from ..hmm.family import FamilyBatch
 from ..hmm.transition import hadamard, interval_recomb, transition_eigenvalues
-from . import stats_pallas as sp
+from . import dispatch
+from . import enum_stats as sp
 
-_TS, _TL = 8, 128
-_TN = _TS * _TL
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 # ---------------------------------------------------------------------------
 # Input prep: FamilyBatch -> feature-leading slot tensors
 # ---------------------------------------------------------------------------
 class SlotTensors(NamedTuple):
-    md: jnp.ndarray    # [7, 2, M, nb, TS, TL] int32
-    ms: jnp.ndarray    # [7, 2, M, nb, TS, TL]
-    hw: jnp.ndarray    # [7, M, nb, TS, TL]
-    ex: jnp.ndarray    # [7, nb, TS, TL] int32
-    at: jnp.ndarray    # [7, nb, TS, TL] int32
-    f2: jnp.ndarray    # [nb, TS, TL] int32
-    sh: jnp.ndarray    # [nb, TS, TL] int32
-    em: jnp.ndarray    # [7, nb, TS, TL] int32 (emptyslot)
-    df: jnp.ndarray    # [NV, 7, nb, TS, TL] int32 (dup_flip variants)
+    md: jnp.ndarray    # [7, 2, M, R] int32
+    ms: jnp.ndarray    # [7, 2, M, R]
+    hw: jnp.ndarray    # [7, M, R]
+    ex: jnp.ndarray    # [7, R] int32
+    at: jnp.ndarray    # [7, R] int32
+    f2: jnp.ndarray    # [R] int32
+    sh: jnp.ndarray    # [R] int32
+    em: jnp.ndarray    # [7, R] int32 (emptyslot)
+    df: jnp.ndarray    # [NV, 7, R] int32 (dup_flip variants)
 
     @property
-    def nb(self) -> int:
+    def R(self) -> int:
         return self.f2.shape[0]
 
 
 def prep_slots(fb: FamilyBatch, dtype) -> SlotTensors:
-    B, _, M, _ = fb.md.shape
-    nb = -(-B // _TN)
-    R = nb * _TN
+    B = fb.md.shape[0]
+    R = dispatch.pad_lanes(B)
 
     def padb(x):  # pad batch axis 0 to R
         pad = [(0, R - B)] + [(0, 0)] * (x.ndim - 1)
         return jnp.pad(x, pad)
 
-    md = jnp.transpose(padb(fb.md), (1, 3, 2, 0))          # [7, 2, M, R]
-    ms = jnp.transpose(padb(fb.ms.astype(dtype)), (1, 3, 2, 0))
-    hw = jnp.transpose(padb(fb.hw.astype(dtype)), (1, 2, 0))   # [7, M, R]
-    ex = padb(fb.exists.astype(jnp.int32)).T               # [7, R]
-    at = padb(fb.attop.astype(jnp.int32)).T
-    f2 = padb(fb.flag2ignore)
-    sh = padb(fb.shiftignore)
-    em = padb(fb.emptyslot.astype(jnp.int32)).T            # [7, R]
-    df = jnp.transpose(padb(fb.dup_flip.astype(jnp.int32)),
-                       (1, 2, 0))                          # [4, 7, R]
-    t = (nb, _TS, _TL)
     return SlotTensors(
-        md=md.reshape((7, 2, M) + t), ms=ms.reshape((7, 2, M) + t),
-        hw=hw.reshape((7, M) + t), ex=ex.reshape((7,) + t),
-        at=at.reshape((7,) + t), f2=f2.reshape(t), sh=sh.reshape(t),
-        em=em.reshape((7,) + t), df=df.reshape((-1, 7) + t))
+        md=jnp.transpose(padb(fb.md), (1, 3, 2, 0)),
+        ms=jnp.transpose(padb(fb.ms.astype(dtype)), (1, 3, 2, 0)),
+        hw=jnp.transpose(padb(fb.hw.astype(dtype)), (1, 2, 0)),
+        ex=padb(fb.exists.astype(jnp.int32)).T,
+        at=padb(fb.attop.astype(jnp.int32)).T,
+        f2=padb(fb.flag2ignore),
+        sh=padb(fb.shiftignore),
+        em=padb(fb.emptyslot.astype(jnp.int32)).T,
+        df=jnp.transpose(padb(fb.dup_flip.astype(jnp.int32)), (1, 2, 0)))
+
+
+def _unit_row(x):
+    """[..., R] per-unit operand -> [..., 1, R], broadcasting over M."""
+    return x[..., None, :]
 
 
 # ---------------------------------------------------------------------------
-# Emission kernel: e[m, X, tile] from slot data
+# Emissions: e[m, X, r] from slot data
 # ---------------------------------------------------------------------------
 def _e_tile(md, ms, hw, exists, attop, cfg: ModelConfig, dtype):
-    """E [2(s2), 2(s1), 2(s0), 8(fp1), 8(fp0)] + T for one (m, b-tile):
-    assemble_e_all semantics on in-VMEM blocks."""
+    """E [2(s2), 2(s1), 2(s0), 8(fp1), 8(fp0), *T] over data axes T:
+    assemble_e_all semantics with the enum axes leading."""
     def slotL(s):
         return sp.SlotL(md=md[s], ms=ms[s], hw=hw[s], exists=exists[s],
                         attop=attop[s])
@@ -132,7 +126,6 @@ def _e_tile(md, ms, hw, exists, attop, cfg: ModelConfig, dtype):
 
     T = md.shape[2:]
     # e[v,u,t,b,a] = sum_r froot[r,t] * pbs0[r,a,u] * pbs1[r,b,v]
-    # (python-level stack, not .at[].set: Mosaic cannot lower scatter)
     planes = []
     for v in range(2):
         for u in range(2):
@@ -151,52 +144,18 @@ def _e_tile(md, ms, hw, exists, attop, cfg: ModelConfig, dtype):
     return jnp.where(focal.attop, tops_e, e)
 
 
-def _e_kernel(md_ref, ms_ref, hw_ref, ex_ref, at_ref,
-              e_ref, *, cfg: ModelConfig):
-    T = (_TS, _TL)
-    dtype = e_ref.dtype
-    md = md_ref[:].reshape((7, 2) + T)
-    ms = ms_ref[:].reshape((7, 2) + T)
-    hw = hw_ref[:].reshape((7,) + T)
-    exists = ex_ref[:].reshape((7,) + T) != 0
-    attop = at_ref[:].reshape((7,) + T) != 0
-    e = _e_tile(md, ms, hw, exists, attop, cfg, dtype)
-    e_ref[:] = e.reshape(e_ref.shape)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("M", "cfg", "dtype", "interpret"))
-def emission_tiles(st: SlotTensors, M: int, cfg: ModelConfig,
-                   dtype=jnp.float32, interpret: bool = False):
-    """e [M, 512, nb, TS, TL]."""
-    nb = st.nb
-    grid = (M, nb)
-
-    def bspec(shape, imap):
-        return pl.BlockSpec(shape, imap, memory_space=pltpu.VMEM)
-
-    e = pl.pallas_call(
-        functools.partial(_e_kernel, cfg=cfg),
-        grid=grid,
-        in_specs=[
-            bspec((7, 2, 1, 1, _TS, _TL), lambda m, b: (0, 0, m, b, 0, 0)),
-            bspec((7, 2, 1, 1, _TS, _TL), lambda m, b: (0, 0, m, b, 0, 0)),
-            bspec((7, 1, 1, _TS, _TL), lambda m, b: (0, m, b, 0, 0)),
-            bspec((7, 1, _TS, _TL), lambda m, b: (0, b, 0, 0)),
-            bspec((7, 1, _TS, _TL), lambda m, b: (0, b, 0, 0)),
-        ],
-        out_specs=bspec((1, 512, 1, _TS, _TL), lambda m, b: (m, 0, b, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((M, 512, nb, _TS, _TL), dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )(st.md, st.ms, st.hw, st.ex, st.at)
-    return e
+@functools.partial(jax.jit, static_argnames=("cfg", "dtype"))
+def emissions_v2(st: SlotTensors, cfg: ModelConfig, dtype) -> jnp.ndarray:
+    """e [M, X, R]: _e_tile on the whole [M, R] data plane (XLA fuses
+    the elementwise chain into a single pass that writes e)."""
+    M, R = st.md.shape[2], st.R
+    e = _e_tile(st.md, st.ms, st.hw, _unit_row(st.ex) != 0,
+                _unit_row(st.at) != 0, cfg, dtype)
+    return jnp.transpose(e.reshape(512, M, R), (1, 0, 2))
 
 
 # ---------------------------------------------------------------------------
-# Feature-leading forward-backward scan
+# Feature-leading forward-backward scan (XLA form)
 # ---------------------------------------------------------------------------
 class FBv2(NamedTuple):
     fw_pre: jnp.ndarray    # [M, X, R]
@@ -221,52 +180,33 @@ def _emit_norm_v2(p, e, logf, NS, S):
 
 def _transition_v2(p, lam_row, H, NS, S):
     """p [X, R] -> H diag(lam) H p / S per shift block."""
-    ph = jnp.einsum("gh,nhr->ngr", H, p.reshape(NS, S, -1))
+    ph = jnp.einsum("gh,nhr->ngr", H, p.reshape(NS, S, -1),
+                    precision=_HIGHEST)
     ph = ph * lam_row[None, :, None]
-    q = jnp.einsum("gh,nhr->ngr", H, ph) / S
+    q = jnp.einsum("gh,nhr->ngr", H, ph, precision=_HIGHEST) / S
     return q.reshape(p.shape)
+
+
+def _lam_pad(cfg, params, dists, ratemat, dtype):
+    """[M, S] eigenvalue rows: row j = interval leaving marker j; the
+    last row (no interval) is the identity."""
+    r = interval_recomb(cfg, params, dists, ratemat=ratemat)
+    lam = transition_eigenvalues(cfg, r).astype(dtype)      # [M-1, S]
+    return jnp.concatenate([lam, jnp.ones((1, cfg.numtypes), dtype=dtype)],
+                           0)
 
 
 def fb_scan_v2(e: jnp.ndarray, dists: jnp.ndarray, cfg: ModelConfig,
                params: RuntimeParams, ratemat=None) -> FBv2:
-    """e: [M, X, R] from emission_tiles (tile axes flattened)."""
+    """e: [M, X, R] from emissions_v2."""
     M, X, R = e.shape
     S, NS = cfg.numtypes, cfg.numshifts
     dtype = e.dtype
-    r = interval_recomb(cfg, params, dists, ratemat=ratemat)
-    lam = transition_eigenvalues(cfg, r).astype(dtype)      # [M-1, S]
-    lam_pad = jnp.concatenate([lam, jnp.ones((1, S), dtype=dtype)], 0)
-    H = jnp.asarray(hadamard(int(S).bit_length() - 1, str(dtype)))
-
+    lam_pad = _lam_pad(cfg, params, dists, ratemat, dtype)
     p0 = jnp.full((X, R), cfg.evengen, dtype=dtype)
     f0 = jnp.zeros((NS, R), dtype=dtype)
-
-    def fwd_step(carry, xs):
-        p, logf = carry
-        ei, w = xs
-        pre, pre_f = p, logf
-        pn, logf = _emit_norm_v2(p, ei, logf, NS, S)
-        return (_transition_v2(pn, w, H, NS, S), logf), (pre, pre_f, pn,
-                                                         logf)
-
-    _, (fw_pre, fw_pre_f, fw_post, fw_post_f) = jax.lax.scan(
-        fwd_step, (p0, f0), (e, lam_pad), unroll=8)
-
-    ones = jnp.ones((X, R), dtype=dtype)
-
-    def bwd_step(carry, xs):
-        p, logf = carry
-        ei, w = xs
-        pn, logf = _emit_norm_v2(p, ei, logf, NS, S)
-        pprev = _transition_v2(pn, w, H, NS, S)
-        return (pprev, logf), (pprev, logf)
-
-    _, (bw_rest, bw_rest_f) = jax.lax.scan(
-        bwd_step, (ones, f0), (e[1:], lam), unroll=8, reverse=True)
-    bw = jnp.concatenate([bw_rest, ones[None]], axis=0)
-    bw_f = jnp.concatenate([bw_rest_f, f0[None]], axis=0)
-    return FBv2(fw_pre=fw_pre, fw_post=fw_post, bw=bw, fw_pre_f=fw_pre_f,
-                fw_post_f=fw_post_f, bw_f=bw_f)
+    return fb_scan_v2_block(e, lam_pad, p0, f0, jnp.ones((X, R), dtype=dtype),
+                            f0, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -360,28 +300,35 @@ def fb_scan_v2_block(e: jnp.ndarray, lam_pad: jnp.ndarray, p0, f0, bT,
 
 
 def make_blocked_pieces(cfg: ModelConfig, params: RuntimeParams, dtype,
-                        num_individuals: int, interpret: bool = False,
-                        probe_rules: bool = False, n_variants: int = 1):
+                        num_individuals: int, probe_rules: bool = False,
+                        n_variants: int = 1):
     """Jitted building blocks for the marker-blocked scan, shared across
-    blocks/chunks/iterations (one compile per block shape)."""
+    blocks/chunks/iterations (one compile per block shape).  The sweep
+    stage takes the dispatch table's implementation."""
     from ..hmm.probes import haplo_update_mask
     from ..parallel.collective import merge_haplos, merge_infprobs
 
+    plan = dispatch.scan_plan(dtype)
     prep = jax.jit(lambda f: prep_slots(f, dtype))
+    emis = jax.jit(lambda st: emissions_v2(st, cfg, dtype))
     lamfn = jax.jit(lambda d, rm: transition_eigenvalues(
         cfg, interval_recomb(cfg, params, d, ratemat=rm)).astype(dtype))
     carry_f = jax.jit(lambda e, lp, p, f: fb_carry_fwd(e, lp, p, f, cfg))
     carry_b = jax.jit(lambda e, lp, lb, p, f:
                       fb_carry_bwd(e, lp, lb, p, f, cfg))
-    blockfb = jax.jit(lambda e, lp, p0, f0, bT, bfT:
-                      fb_scan_v2_block(e, lp, p0, f0, bT, bfT, cfg))
+    if plan.fb == "triton":
+        blockfb = jax.jit(lambda e, lp, p0, f0, bT, bfT: fb_sweeps_v2_triton(
+            e, None, cfg, params, lam_pad=lp, init_fwd=(p0, f0),
+            init_bwd=(bT, bfT)))
+    else:
+        blockfb = jax.jit(lambda e, lp, p0, f0, bT, bfT:
+                          fb_scan_v2_block(e, lp, p0, f0, bT, bfT, cfg))
     total_fn = jax.jit(loglik_from_factors)
 
     @functools.partial(jax.jit, static_argnames=("K", "B"))
     def block_stats(st, fb2, total_r, lut, fb_blk, K: int, B: int):
         b12, accum, pair = stats_from_v2(st, fb2, total_r, K, B, cfg,
-                                         dtype, interpret=interpret,
-                                         probe_rules=probe_rules,
+                                         dtype, probe_rules=probe_rules,
                                          n_variants=n_variants)
         hmask = haplo_update_mask(fb_blk, cfg)
         hb, hc = merge_haplos(b12, hmask, fb_blk.hw, fb_blk.slot_ind,
@@ -392,18 +339,11 @@ def make_blocked_pieces(cfg: ModelConfig, params: RuntimeParams, dtype,
                              else None)
         return pair, hb, hc, inf
 
-    def turn_fn(fb2, sh, desc, B):
-        if interpret:
-            return turn_weights_v2(fb2, sh, desc, cfg, B)
-        return turn_weights_v2_pallas(fb2, sh, desc, cfg, B)
-
-    return dict(prep=prep, lam=lamfn, carry_f=carry_f, carry_b=carry_b,
-                blockfb=blockfb, total=total_fn, block_stats=block_stats,
-                turn=jax.jit(turn_fn, static_argnames=("B",)))
-
-
-def _blk_interp():
-    return jax.default_backend() == "cpu"
+    return dict(prep=prep, emissions=emis, lam=lamfn, carry_f=carry_f,
+                carry_b=carry_b, blockfb=blockfb, total=total_fn,
+                block_stats=block_stats,
+                turn=jax.jit(lambda fb2, sh, desc, B: turn_weights_v2(
+                    fb2, sh, desc, cfg, B), static_argnames=("B",)))
 
 
 def blocked_slice(fb_np, i: int, block: int):
@@ -421,9 +361,7 @@ def blocked_slice(fb_np, i: int, block: int):
 def _blk_inputs(fb_np, i, block, cfg, dt, pieces):
     fb_blk = blocked_slice(fb_np, i, block).map(jnp.asarray)
     st = pieces["prep"](fb_blk)
-    e = emission_tiles(st, block, cfg, dtype=dt,
-                       interpret=_blk_interp()).reshape(block, 512, -1)
-    return fb_blk, st, e
+    return fb_blk, st, pieces["emissions"](st)
 
 
 def blocked_carries(fb_np, dists, ratemat, cfg: ModelConfig, block: int,
@@ -443,7 +381,7 @@ def blocked_carries(fb_np, dists, ratemat, cfg: ModelConfig, block: int,
     dt = lam.dtype
     lam_pad = jnp.concatenate([lam, jnp.ones((1, S), dtype=dt)], 0)
 
-    R = (-(-B // _TN)) * _TN
+    R = dispatch.pad_lanes(B)
     p = jnp.full((NS * S, R), cfg.evengen, dtype=dt)
     f = jnp.zeros((NS, R), dtype=dt)
     fbound = []
@@ -544,8 +482,28 @@ def loglik_from_factors(f: jnp.ndarray, sh: jnp.ndarray) -> jnp.ndarray:
 
 
 def combined_loglik_v2(fb2: FBv2, sh: jnp.ndarray) -> jnp.ndarray:
-    """total [R] from fw_post_f [M, NS, R]; sh [nb, TS, TL] shiftignore."""
+    """total [R] from fw_post_f [M, NS, R]; sh [R] shiftignore."""
     return loglik_from_factors(fb2.fw_post_f[-1], sh)
+
+
+def _turn_offsets(cfg: ModelConfig) -> np.ndarray:
+    """Joint index (shift-major, x = s*S + g) of each turn's WHT offset."""
+    S = cfg.numtypes
+    return np.array([cfg.turn_shift_flip(t) * S + (t & cfg.turn_state_mask)
+                     for t in range(cfg.numturns)])
+
+
+def _turn_finish(vals, B, descendants, total_desc_scale):
+    """[M, T, R] correlation values -> [B, M, T] clause weights."""
+    dtype = vals.dtype
+    tiny = jnp.asarray(np.finfo(str(dtype)).tiny, dtype=dtype)
+    logv = jnp.log(jnp.maximum(vals, tiny))
+    ok = vals > 0
+    w = jnp.where(ok & ok[:, 0:1], logv - logv[:, 0:1], MINFACTOR)
+    w = jnp.transpose(w[:, :, :B], (2, 0, 1))               # [B, M, T]
+    if total_desc_scale:
+        w = w * descendants[:, None, None]
+    return w
 
 
 def turn_weights_v2(fb2: FBv2, sh: jnp.ndarray, descendants: jnp.ndarray,
@@ -572,399 +530,192 @@ def turn_weights_v2(fb2: FBv2, sh: jnp.ndarray, descendants: jnp.ndarray,
     bwp = (fb2.bw.reshape(M, NS, S, R) * bexp[:, :, None]).reshape(M, X, R)
 
     # factored 512-point WHT: H_X = H_NS (x) H_S, applied as one [S, S]
-    # and one [NS, NS] contraction — 7x fewer FLOPs than the dense
-    # [X, X] matmul, which made this the most expensive stage
+    # and one [NS, NS] contraction
     Hs = jnp.asarray(hadamard(int(S).bit_length() - 1, str(dtype)))
     Hn = jnp.asarray(hadamard(int(NS).bit_length() - 1, str(dtype)))
 
     def wht_x(x):
         x = x.reshape(M, NS, S, R)
-        x = jnp.einsum("nt,mtgr->mngr", Hn, x)
-        x = jnp.einsum("gh,mnhr->mngr", Hs, x)
+        x = jnp.einsum("nt,mtgr->mngr", Hn, x, precision=_HIGHEST)
+        x = jnp.einsum("gh,mnhr->mngr", Hs, x, precision=_HIGHEST)
         return x.reshape(M, X, R)
 
     fh = wht_x(fwp)
     bh = wht_x(bwp)
     D = wht_x(fh * bh) / X                                  # [M, X, R]
-
-    idx = np.array([cfg.turn_shift_flip(t) * S + (t & cfg.turn_state_mask)
-                    for t in range(cfg.numturns)])
-    vals = D[:, idx]                                        # [M, T, R]
-    tiny = jnp.asarray(np.finfo(str(dtype)).tiny, dtype=dtype)
-    logv = jnp.log(jnp.maximum(vals, tiny))
-    ok = vals > 0
-    w = jnp.where(ok & ok[:, 0:1], logv - logv[:, 0:1], MINFACTOR)
-    w = jnp.transpose(w[:, :, :B], (2, 0, 1))               # [B, M, T]
-    if total_desc_scale:
-        w = w * descendants[:, None, None]
-    return w
+    vals = D[:, _turn_offsets(cfg)]                         # [M, T, R]
+    return _turn_finish(vals, B, descendants, total_desc_scale)
 
 
 # ---------------------------------------------------------------------------
-# Fused forward-backward kernel in v2 layout: the carry lives in VMEM
-# across the marker grid (the XLA scan bounces carry + per-step
-# intermediates through HBM every step), transitions are butterfly FWHTs
-# on the leading state axis, and only fw_pre / fw_post / bw + factors
-# leave the chip.
+# The sweeps as a Pallas kernel through Triton.  Each program owns one
+# shift block of LANE_BLOCK consecutive units; the arithmetic matches
+# fb_scan_v2 (tests/test_scan_v2.py runs both in interpret mode).  It is
+# a float32 kernel on the GPU; the interpreter runs it in any dtype.
 # ---------------------------------------------------------------------------
-def _emit_norm_tile(p, e, f, NS, S, dtype):
-    """p, e: [NS, S, TS, TL]; f: [NS, TS, TL].  adjustprobs semantics
-    (same arithmetic as _emit_norm_v2)."""
-    clip = jnp.asarray(1e-300, dtype=dtype)
-    p = jnp.where(p < clip, 0.0, p)
+# Warps per program: with 32-unit lane blocks the fastest of the tiles
+# measured on an H100 (PERF.md); other tiles ran up to 14x slower.
+_FB_WARPS = 4
+
+
+def _emit_norm_block(p, e, f):
+    """adjustprobs on one shift block: p, e [S, L]; f [L]."""
+    p = jnp.where(p < jnp.asarray(1e-300, p.dtype), 0.0, p)
     pe = p * e
-    s = pe.sum(axis=1)                                  # [NS, TS, TL]
+    s = jnp.sum(pe, axis=0)
     ok = s > 0
     sden = jnp.where(ok, s, 1.0)
-    pn = jnp.where(ok[:, None], pe / sden[:, None], 0.0)
+    pn = jnp.where(ok[None, :], pe / sden[None, :], 0.0)
     f = jnp.where(ok, f + jnp.log(sden), MINFACTOR)
     return pn, f
 
 
-def _transition_tile(pn, lam, NS, S):
-    """Butterfly-WHT transition: H diag(lam) H pn / S along the state
-    axis; lam: [S, TS, TL] (pre-broadcast eigenvalues)."""
-    q = _fwht_lead(pn, 1, S) * lam[None]
-    return _fwht_lead(q, 1, S) * (1.0 / S)
+def _fb_fwd_kernel(e_ref, tm_ref, p0_ref, f0_ref, pre_ref, pref_ref,
+                   post_ref, postf_ref):
+    def step(m, carry):
+        p, f = carry
+        pre_ref[m] = p
+        pref_ref[m] = f
+        pn, f = _emit_norm_block(p, e_ref[m], f)
+        post_ref[m] = pn
+        postf_ref[m] = f
+        return jnp.dot(tm_ref[m], pn, precision=_HIGHEST), f
+
+    jax.lax.fori_loop(0, e_ref.shape[0], step, (p0_ref[...], f0_ref[...]))
 
 
-def _fbv2_fwd_kernel(e_ref, lam_ref, p0_ref, f0_ref, pre_ref, pref_ref,
-                     post_ref, postf_ref, p_scr, f_scr, *, NS, S):
-    m = pl.program_id(1)
-    T = (_TS, _TL)
-    dtype = p_scr.dtype
+def _fb_bwd_kernel(e_ref, tm_ref, bT_ref, bfT_ref, bw_ref, bwf_ref):
+    M = e_ref.shape[0]
 
-    @pl.when(m == 0)
-    def _():
-        p_scr[:] = p0_ref[:].reshape(p_scr.shape)
-        f_scr[:] = f0_ref[:].reshape(f_scr.shape)
+    def step(i, carry):
+        p, f = carry
+        m = M - 1 - i
+        bw_ref[m] = p
+        bwf_ref[m] = f
+        pn, f = _emit_norm_block(p, e_ref[m], f)
+        return jnp.dot(tm_ref[m - 1], pn, precision=_HIGHEST), f
 
-    p = p_scr[:].reshape((NS, S) + T)
-    f = f_scr[:].reshape((NS,) + T)
-    pre_ref[:] = p.reshape(pre_ref.shape)
-    pref_ref[:] = f.reshape(pref_ref.shape)
-
-    e = e_ref[:].reshape((NS, S) + T)
-    pn, f = _emit_norm_tile(p, e, f, NS, S, dtype)
-    post_ref[:] = pn.reshape(post_ref.shape)
-    postf_ref[:] = f.reshape(postf_ref.shape)
-
-    lam = lam_ref[:].reshape(S, 1, _TL)
-    p_scr[:] = _transition_tile(pn, lam, NS, S).reshape(p_scr.shape)
-    f_scr[:] = f.reshape(f_scr.shape)
+    p, f = jax.lax.fori_loop(0, M - 1, step, (bT_ref[...], bfT_ref[...]))
+    bw_ref[0] = p
+    bwf_ref[0] = f
 
 
-def _fbv2_bwd_kernel(e_ref, lam_ref, bT_ref, bfT_ref, bw_ref, bwf_ref,
-                     p_scr, f_scr, *, NS, S, nm):
-    m = pl.program_id(1)
-    T = (_TS, _TL)
-    dtype = p_scr.dtype
-
-    @pl.when(m == 0)
-    def _():
-        p_scr[:] = bT_ref[:].reshape(p_scr.shape)
-        f_scr[:] = bfT_ref[:].reshape(f_scr.shape)
-
-    p = p_scr[:].reshape((NS, S) + T)
-    f = f_scr[:].reshape((NS,) + T)
-    bw_ref[:] = p.reshape(bw_ref.shape)
-    bwf_ref[:] = f.reshape(bwf_ref.shape)
-
-    @pl.when(m < nm - 1)
-    def _():
-        e = e_ref[:].reshape((NS, S) + T)
-        pn, f2 = _emit_norm_tile(p, e, f, NS, S, dtype)
-        lam = lam_ref[:].reshape(S, 1, _TL)
-        p_scr[:] = _transition_tile(pn, lam, NS, S).reshape(p_scr.shape)
-        f_scr[:] = f2.reshape(f_scr.shape)
+def transition_operators(lam_pad: jnp.ndarray, S: int) -> jnp.ndarray:
+    """[M, S, S] dense per-interval transition H diag(lam) H / S (one
+    [S, S] x [S, lanes] product per marker step in the sweep kernel)."""
+    H = jnp.asarray(hadamard(int(S).bit_length() - 1, str(lam_pad.dtype)))
+    return jnp.einsum("gk,mk,kh->mgh", H, lam_pad, H,
+                      precision=_HIGHEST) / S
 
 
-def fb_sweeps_v2_pallas(e: jnp.ndarray, dists: jnp.ndarray,
+def fb_sweeps_v2_triton(e: jnp.ndarray, dists: jnp.ndarray,
                         cfg: ModelConfig, params: RuntimeParams,
                         ratemat=None, interpret: bool = False,
                         lam_pad=None, init_fwd=None,
                         init_bwd=None) -> FBv2:
-    """fb_scan_v2 as two fused Pallas sweeps.  e: [M, X, R].
+    """fb_scan_v2 as two Pallas sweeps through Triton.  e: [M, X, R].
 
-    Boundary-carry generalisation (the kernel form of
-    fb_scan_v2_block): ``lam_pad`` [M, S] supplies the per-interval
-    eigenvalue rows directly (row j = interval leaving marker j; last
-    row identity for a whole chromosome), ``init_fwd=(p0 [X,R], f0
-    [NS,R])`` seeds the forward carry and ``init_bwd=(bT, bfT)`` the
-    backward carry at the last marker — defaults reproduce the
-    whole-chromosome sweep (evengen prior / all-ones backward)."""
+    The grid is (shift block, lane block): every (shift, unit) chain is
+    independent, because the emission normalisation and the transition
+    both act within one shift block of S states.  Each program keeps its
+    [S, lanes] carry in registers and loops over the markers; only the
+    stored sweep tensors touch device memory.
+
+    Boundary carries (the kernel form of fb_scan_v2_block): ``lam_pad``
+    [M, S] gives the eigenvalue rows directly, ``init_fwd=(p0 [X, R],
+    f0 [NS, R])`` seeds the forward carry and ``init_bwd=(bT, bfT)`` the
+    backward carry at the last marker; the defaults reproduce the whole
+    chromosome (evengen prior, all-ones backward)."""
     M, X, R = e.shape
     S, NS = cfg.numtypes, cfg.numshifts
     dtype = e.dtype
-    nb = R // _TN
     if lam_pad is None:
-        r = interval_recomb(cfg, params, dists, ratemat=ratemat)
-        lam = transition_eigenvalues(cfg, r).astype(dtype)   # [M-1, S]
-        lam_pad = jnp.concatenate([lam, jnp.ones((1, S), dtype=dtype)],
-                                  0)
-    else:
-        lam_pad = lam_pad.astype(dtype)
+        lam_pad = _lam_pad(cfg, params, dists, ratemat, dtype)
+    tm = transition_operators(lam_pad.astype(dtype), S)
     if init_fwd is None:
         init_fwd = (jnp.full((X, R), cfg.evengen, dtype=dtype),
                     jnp.zeros((NS, R), dtype=dtype))
     if init_bwd is None:
         init_bwd = (jnp.ones((X, R), dtype=dtype),
                     jnp.zeros((NS, R), dtype=dtype))
-    # eigenvalues vary along the leading state axis of the carry: feed
-    # them broadcast over the lane axis only (one vreg row per state;
-    # the kernel broadcasts over sublanes in-register)
-    lam_b = jnp.broadcast_to(lam_pad[:, :, None, None], (M, S, 1, _TL))
+    lanes = dispatch.LANE_BLOCK
+    assert R % lanes == 0, (R, lanes)
 
-    t5 = (nb, _TS, _TL)
-    ev = e.reshape((M, X) + t5)
+    sweep = pl.BlockSpec((M, S, lanes), lambda n, b: (0, n, b))
+    factors = pl.BlockSpec((M, None, lanes), lambda n, b: (0, n, b))
+    ops = pl.BlockSpec((M, S, S), lambda n, b: (0, 0, 0))
+    carry = pl.BlockSpec((S, lanes), lambda n, b: (n, b))
+    carry_f = pl.BlockSpec((None, lanes), lambda n, b: (n, b))
+    shape_x = jax.ShapeDtypeStruct((M, X, R), dtype)
+    shape_f = jax.ShapeDtypeStruct((M, NS, R), dtype)
+    call = functools.partial(
+        pl.pallas_call, grid=(NS, R // lanes), backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=_FB_WARPS,
+                                                num_stages=2),
+        interpret=interpret)
 
-    def bspec(shape, imap):
-        return pl.BlockSpec(shape, imap, memory_space=pltpu.VMEM)
-
-    espec_f = bspec((1, X, 1, _TS, _TL), lambda b, m: (m, 0, b, 0, 0))
-    espec_b = bspec((1, X, 1, _TS, _TL),
-                    lambda b, m, nm=M: (nm - 1 - m, 0, b, 0, 0))
-    lspec_f = bspec((1, S, 1, _TL), lambda b, m: (m, 0, 0, 0))
-    lspec_b = bspec((1, S, 1, _TL),
-                    lambda b, m, nm=M: (jnp.maximum(nm - 2 - m, 0),
-                                        0, 0, 0))
-    ospec_f = bspec((1, X, 1, _TS, _TL), lambda b, m: (m, 0, b, 0, 0))
-    ospec_b = bspec((1, X, 1, _TS, _TL),
-                    lambda b, m, nm=M: (nm - 1 - m, 0, b, 0, 0))
-    fspec_f = bspec((1, NS, 1, _TS, _TL), lambda b, m: (m, 0, b, 0, 0))
-    fspec_b = bspec((1, NS, 1, _TS, _TL),
-                    lambda b, m, nm=M: (nm - 1 - m, 0, b, 0, 0))
-    # carry inits: resident per b-tile (index map ignores m, so the
-    # block is DMA'd once per b, read only at m == 0)
-    ispec_x = bspec((X, 1, _TS, _TL), lambda b, m: (0, b, 0, 0))
-    ispec_f = bspec((NS, 1, _TS, _TL), lambda b, m: (0, b, 0, 0))
-    p0t = init_fwd[0].reshape((X,) + t5)
-    f0t = init_fwd[1].reshape((NS,) + t5)
-    bTt = init_bwd[0].reshape((X,) + t5)
-    bfTt = init_bwd[1].reshape((NS,) + t5)
-    scratch = [pltpu.VMEM((X, _TS, _TL), dtype),
-               pltpu.VMEM((NS, _TS, _TL), dtype)]
-    shape_x = jax.ShapeDtypeStruct((M, X) + t5, dtype)
-    shape_f = jax.ShapeDtypeStruct((M, NS) + t5, dtype)
-    cparams = pltpu.CompilerParams(
-        dimension_semantics=("parallel", "arbitrary"),
-        vmem_limit_bytes=100 * 1024 * 1024)
-
-    fw_pre, fw_pre_f, fw_post, fw_post_f = pl.pallas_call(
-        functools.partial(_fbv2_fwd_kernel, NS=NS, S=S),
-        grid=(nb, M),
-        in_specs=[espec_f, lspec_f, ispec_x, ispec_f],
-        out_specs=(ospec_f, fspec_f, ospec_f, fspec_f),
+    fw_pre, fw_pre_f, fw_post, fw_post_f = call(
+        _fb_fwd_kernel, name="fb_fwd_v2",
+        in_specs=[sweep, ops, carry, carry_f],
+        out_specs=(sweep, factors, sweep, factors),
         out_shape=(shape_x, shape_f, shape_x, shape_f),
-        compiler_params=cparams,
-        scratch_shapes=scratch,
-        interpret=interpret,
-    )(ev, lam_b, p0t, f0t)
-
-    bw, bw_f = pl.pallas_call(
-        functools.partial(_fbv2_bwd_kernel, NS=NS, S=S, nm=M),
-        grid=(nb, M),
-        in_specs=[espec_b, lspec_b, ispec_x, ispec_f],
-        out_specs=(ospec_b, fspec_b),
+    )(e, tm, *init_fwd)
+    bw, bw_f = call(
+        _fb_bwd_kernel, name="fb_bwd_v2",
+        in_specs=[sweep, ops, carry, carry_f],
+        out_specs=(sweep, factors),
         out_shape=(shape_x, shape_f),
-        compiler_params=cparams,
-        scratch_shapes=scratch,
-        interpret=interpret,
-    )(ev, lam_b, bTt, bfTt)
+    )(e, tm, *init_bwd)
+    return FBv2(fw_pre=fw_pre, fw_post=fw_post, bw=bw, fw_pre_f=fw_pre_f,
+                fw_post_f=fw_post_f, bw_f=bw_f)
 
-    def flat(x, lead):
-        return x.reshape(M, lead, R)
 
-    return FBv2(fw_pre=flat(fw_pre, X), fw_post=flat(fw_post, X),
-                bw=flat(bw, X), fw_pre_f=flat(fw_pre_f, NS),
-                fw_post_f=flat(fw_post_f, NS), bw_f=flat(bw_f, NS))
+def fb_sweeps(plan: dispatch.ScanPlan):
+    """The sweep implementation ``plan`` names (fb_scan_v2's signature)."""
+    return fb_sweeps_v2_triton if plan.fb == "triton" else fb_scan_v2
 
 
 # ---------------------------------------------------------------------------
-# Fused turn-weight kernel: posterior-weighted xor-correlation at the 128
-# turn offsets, one pass over (m, b-tile) blocks.  The XLA form reads and
-# writes ~6 GB of [M, X, R] intermediates per chromosome (weighted
-# sweeps, three WHT transforms, offset gather, log ratios); here the
-# whole chain runs in VMEM per tile with butterfly FWHTs on the leading
-# (vreg-index) axes, so HBM traffic is just fw_post + bw in and [M, T, R]
-# out.
+# Posterior update statistics on v2 tensors (XLA form)
 # ---------------------------------------------------------------------------
-def _fwht_lead(x, axis: int, n: int):
-    """In-register FWHT along a leading axis of length n (power of 2);
-    all reshapes/stacks act on vreg-index dims, no lane movement."""
-    for k in range(n.bit_length() - 1):
-        h = 1 << k
-        pre = x.shape[:axis]
-        post = x.shape[axis + 1:]
-        v = x.reshape(pre + (n // (2 * h), 2, h) + post)
-        ix = (slice(None),) * (axis + 1)
-        a = v[ix + (0,)]
-        b = v[ix + (1,)]
-        x = jnp.stack([a + b, a - b], axis=axis + 1).reshape(
-            pre + (n,) + post)
-    return x
-
-
-def _turn_kernel(fwp_ref, bw_ref, fwf_ref, bwf_ref, sh_ref, w_ref, *,
-                 idx, NS, S):
-    T = (_TS, _TL)
-    dtype = w_ref.dtype
-    fw = fwp_ref[:].reshape((NS, S) + T)
-    bw = bw_ref[:].reshape((NS, S) + T)
-    ff = fwf_ref[:].reshape((NS,) + T)
-    bf = bwf_ref[:].reshape((NS,) + T)
-    sh = sh_ref[:].reshape(T)
-
-    n_iota = jax.lax.broadcasted_iota(jnp.int32, (NS,) + T, 0)
-    allowed = (n_iota & sh) == 0
-    big = jnp.asarray(-1e38, dtype=dtype)
-    ffm = jnp.max(jnp.where(allowed, ff, big), axis=0)
-    fexp = jnp.where(allowed, jnp.exp(ff - ffm), 0.0)
-    bfm = jnp.max(bf, axis=0)
-    bexp = jnp.exp(bf - bfm)
-
-    f = fw * fexp[:, None]
-    b = bw * bexp[:, None]
-    f = _fwht_lead(_fwht_lead(f, 0, NS), 1, S)
-    b = _fwht_lead(_fwht_lead(b, 0, NS), 1, S)
-    D = _fwht_lead(_fwht_lead(f * b, 0, NS), 1, S) * (1.0 / (NS * S))
-
-    vals = jnp.stack([D[i // S, i % S] for i in idx], axis=0)
-    tiny = jnp.asarray(np.finfo(np.dtype(str(dtype))).tiny, dtype=dtype)
-    logv = jnp.log(jnp.maximum(vals, tiny))
-    ok = vals > 0
-    w = jnp.where(ok & ok[0:1], logv - logv[0:1], MINFACTOR)
-    w_ref[:] = w.reshape(w_ref.shape)
-
-
-def turn_weights_v2_pallas(fb2: FBv2, sh: jnp.ndarray,
-                           descendants: jnp.ndarray, cfg: ModelConfig,
-                           B: int, total_desc_scale: bool = True,
-                           interpret: bool = False) -> jnp.ndarray:
-    """turn_weights_v2 as one fused Pallas pass (same outputs)."""
-    M, X, R = fb2.fw_post.shape
-    S, NS = cfg.numtypes, cfg.numshifts
-    nb = R // _TN
-    dtype = fb2.fw_post.dtype
-    idx = tuple(int(cfg.turn_shift_flip(t)) * S +
-                (t & cfg.turn_state_mask) for t in range(cfg.numturns))
-    Tn = cfg.numturns
-    t5 = (nb, _TS, _TL)
-
-    def bspec(shape, imap):
-        return pl.BlockSpec(shape, imap, memory_space=pltpu.VMEM)
-
-    w = pl.pallas_call(
-        functools.partial(_turn_kernel, idx=idx, NS=NS, S=S),
-        grid=(M, nb),
-        in_specs=[
-            bspec((1, X, 1, _TS, _TL), lambda m, b: (m, 0, b, 0, 0)),
-            bspec((1, X, 1, _TS, _TL), lambda m, b: (m, 0, b, 0, 0)),
-            bspec((1, NS, 1, _TS, _TL), lambda m, b: (m, 0, b, 0, 0)),
-            bspec((1, NS, 1, _TS, _TL), lambda m, b: (m, 0, b, 0, 0)),
-            bspec((1, _TS, _TL), lambda m, b: (b, 0, 0)),
-        ],
-        out_specs=bspec((1, Tn, 1, _TS, _TL), lambda m, b: (m, 0, b, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((M, Tn, nb, _TS, _TL), dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel"),
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )(fb2.fw_post.reshape((M, X) + t5), fb2.bw.reshape((M, X) + t5),
-      fb2.fw_post_f.reshape((M, NS) + t5),
-      fb2.bw_f.reshape((M, NS) + t5), sh)
-
-    w = jnp.transpose(w.reshape(M, Tn, R)[:, :, :B], (2, 0, 1))
-    if total_desc_scale:
-        w = w * descendants[:, None, None]
-    return w
-
-
-# ---------------------------------------------------------------------------
-# Stats kernel on v2 tensors (zero-copy via index maps)
-# ---------------------------------------------------------------------------
+@functools.partial(jax.jit, static_argnames=("M", "B", "cfg", "dtype",
+                                             "probe_rules", "n_variants"))
 def stats_from_v2(st: SlotTensors, fb2: FBv2, total: jnp.ndarray,
                   M: int, B: int, cfg: ModelConfig, dtype,
-                  interpret: bool = False, probe_rules: bool = False,
-                  n_variants: int = 1):
-    """(b12 [B,M,7,2], accum [B,M,7,2,2], pair [B,M,2,2]): the fused
-    stats kernel (ops/stats_pallas._kernel) reading every operand
-    directly from the v2 tensors — tile (i) = (marker i // nb,
-    batch-tile i % nb).  probe_rules/n_variants as in
-    ops.stats_pallas.stats_pallas."""
-    nb = st.nb
-    nt = M * nb
-    R = nb * _TN
+                  probe_rules: bool = False, n_variants: int = 1):
+    """(b12 [B,M,7,2], accum [B,M,7,2,2], pair [B,M,2,2]):
+    ops.enum_stats.stats_tile on the whole [M, R] data plane, the
+    sweep tensors relabelled to its flag-major enum order.
+    probe_rules/n_variants: the ignoreflag2 rule 2-3 probe-dedup factors
+    (cnF2freq.cpp:3462-3496), averaged over the duplicate-member sign
+    variants (hmm.probes.probe_rule_factors)."""
+    R = st.R
+    # feature index is shift-major (ns*64 + g); stats_tile wants
+    # [fp1, fp0, s2, s1, s0, M, R]
+    def sweep(x):
+        return jnp.transpose(x.reshape(M, 2, 2, 2, 8, 8, R),
+                             (4, 5, 1, 2, 3, 0, 6))
 
-    def bspec(shape, imap):
-        return pl.BlockSpec(shape, imap, memory_space=pltpu.VMEM)
+    def factors(x):
+        return jnp.transpose(x.reshape(M, 2, 2, 2, R), (1, 2, 3, 0, 4))
 
-    def mb(i):
-        return i // nb, i % nb
-
-    def slot_spec():        # md/ms [7, 2, M, nb, TS, TL]
-        return bspec((7, 2, 1, 1, _TS, _TL),
-                     lambda i: (0, 0) + mb(i) + (0, 0))
-
-    def b7_spec():          # ex/at/em/df-variant [7, nb, TS, TL]
-        return bspec((7, 1, _TS, _TL), lambda i: (0, i % nb, 0, 0))
-
-    specs = [
-        slot_spec(), slot_spec(),
-        bspec((7, 1, 1, _TS, _TL), lambda i: (0,) + mb(i) + (0, 0)),
-        b7_spec(), b7_spec(), b7_spec(), b7_spec(),
-        bspec((1, _TS, _TL), lambda i: (i % nb, 0, 0)),
-        bspec((1, _TS, _TL), lambda i: (i % nb, 0, 0)),
-        # fw_pre/bw [M, X, R] viewed as [M, X, nb, TS, TL]
-        bspec((1, 512, 1, _TS, _TL), lambda i: mb(i)[:1] + (0, mb(i)[1],
-                                                            0, 0)),
-        bspec((1, 512, 1, _TS, _TL), lambda i: mb(i)[:1] + (0, mb(i)[1],
-                                                            0, 0)),
-        bspec((1, 8, 1, _TS, _TL), lambda i: mb(i)[:1] + (0, mb(i)[1],
-                                                          0, 0)),
-        bspec((1, 8, 1, _TS, _TL), lambda i: mb(i)[:1] + (0, mb(i)[1],
-                                                          0, 0)),
-        bspec((1, _TS, _TL), lambda i: (i % nb, 0, 0)),
-    ]
-
-    def out_spec(lead):
-        return bspec((lead, 1, _TS, _TL), lambda i: (0, i, 0, 0))
-
-    t5 = (nb, _TS, _TL)
-    call = pl.pallas_call(
-        functools.partial(sp._kernel, cfg=cfg, rules=probe_rules),
-        grid=(nt,),
-        in_specs=specs,
-        out_specs=(out_spec(14), out_spec(28), out_spec(4)),
-        out_shape=(
-            jax.ShapeDtypeStruct((14, nt, _TS, _TL), dtype),
-            jax.ShapeDtypeStruct((28, nt, _TS, _TL), dtype),
-            jax.ShapeDtypeStruct((4, nt, _TS, _TL), dtype),
-        ),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",),   # tiles are independent
-            vmem_limit_bytes=100 * 1024 * 1024),
-        interpret=interpret,
-    )
     outs = []
     for v in range(n_variants if probe_rules else 1):
-        df = st.df[v] if probe_rules else st.em
-        outs.append(call(
-            st.md, st.ms, st.hw, st.ex, st.at, st.em, df, st.f2, st.sh,
-            fb2.fw_pre.reshape((M, 512) + t5), fb2.bw.reshape((M, 512) + t5),
-            fb2.fw_pre_f.reshape((M, 8) + t5), fb2.bw_f.reshape((M, 8) + t5),
-            jnp.broadcast_to(total.reshape(t5), t5)))
+        outs.append(sp.stats_tile(
+            st.md, st.ms, st.hw, _unit_row(st.ex) != 0,
+            _unit_row(st.at) != 0, _unit_row(st.f2), _unit_row(st.sh),
+            sweep(fb2.fw_pre), sweep(fb2.bw), factors(fb2.fw_pre_f),
+            factors(fb2.bw_f), _unit_row(total), cfg,
+            empty=_unit_row(st.em) if probe_rules else None,
+            dupf=_unit_row(st.df[v]) if probe_rules else None))
     nv = len(outs)
-    b12t, acct, pairt = (sum(parts) / nv for parts in zip(*outs))
+    b12, acc, pair = (sum(parts) / nv for parts in zip(*outs))
 
-    def back(x, shape):
-        lead = x.shape[0]
-        x = x.reshape((lead, M, R))[:, :, :B]     # n = m*R + b (m-major)
-        nl = len(shape)
-        x = x.reshape(shape + (M, B))
-        return jnp.transpose(x, (nl + 1, nl) + tuple(range(nl)))
+    def back(x):        # [*enum, M, R] -> [B, M, *enum]
+        nl = x.ndim - 2
+        return jnp.transpose(x[..., :B], (nl + 1, nl) + tuple(range(nl)))
 
-    return back(b12t, (7, 2)), back(acct, (7, 2, 2)), back(pairt, (2, 2))
+    return back(b12), back(acc), back(pair)
 
 
 # ---------------------------------------------------------------------------
@@ -972,51 +723,36 @@ def stats_from_v2(st: SlotTensors, fb2: FBv2, total: jnp.ndarray,
 # ---------------------------------------------------------------------------
 def chromosome_scan_v2(fb: FamilyBatch, dists: jnp.ndarray,
                        cfg: ModelConfig, params: RuntimeParams,
-                       interpret: bool = False, ratemat=None,
-                       probe_rules: bool = False, n_variants: int = 1):
+                       ratemat=None, probe_rules: bool = False,
+                       n_variants: int = 1, with_coherence: bool = False,
+                       plan=None):
     """engine.chromosome_scan on the feature-leading pipeline.
 
-    Returns an engine.ScanResult; the fw/bw sweep tensors are converted
-    back to the standard [B, M, NS, S] layout for the follow-up passes
-    (coherence, map re-estimation) — when a caller's jit doesn't use
-    them, XLA dead-code-eliminates the transposes."""
+    ``plan`` (ops.dispatch.ScanPlan) names the sweep implementation; by
+    default the dispatch table's choice for the backend.  Returns an
+    engine.ScanResult; the fw/bw sweep tensors are converted back to the
+    standard [B, M, NS, S] layout for the follow-up passes (coherence,
+    map re-estimation) — when a caller's jit doesn't use them, XLA
+    dead-code-eliminates the transposes."""
     from ..engine import ScanResult
-    from ..hmm.probes import haplo_update_mask
+    from ..hmm.emission import build_blocks
+    from ..hmm.forward_backward import FBResult
+    from ..hmm.probes import haplo_update_mask, phase_coherence
 
     dtype = fb.ms.dtype
+    if plan is None:
+        plan = dispatch.scan_plan(dtype)
     B, _, M, _ = fb.md.shape
     S, NS = cfg.numtypes, cfg.numshifts
     st = prep_slots(fb, dtype)
-    R = st.nb * _TN
-    e = emission_tiles(st, M, cfg, dtype=dtype, interpret=interpret)
-    import os
-    env = os.environ.get("CNF2FREQ_FBV2_PALLAS")
-    use_fb_kernel = (env not in ("0", "false", "") if env is not None
-                     else not interpret)
-    if use_fb_kernel:
-        # fused sweeps: carry in VMEM, butterfly-FWHT transitions in
-        # full f32 (the XLA einsum transition rounds through bf16 on
-        # the MXU); ~2x on v5e
-        fb2 = fb_sweeps_v2_pallas(e.reshape(M, NS * S, R), dists, cfg,
-                                  params, ratemat=ratemat,
-                                  interpret=interpret)
-    else:
-        fb2 = fb_scan_v2(e.reshape(M, NS * S, R), dists, cfg, params,
-                         ratemat=ratemat)
+    e = emissions_v2(st, cfg, dtype)
+    fb2 = fb_sweeps(plan)(e, dists, cfg, params, ratemat=ratemat)
     total_r = combined_loglik_v2(fb2, st.sh)
     b12, accum, pair = stats_from_v2(st, fb2, total_r, M, B, cfg, dtype,
-                                     interpret=interpret,
                                      probe_rules=probe_rules,
                                      n_variants=n_variants)
-    if interpret:
-        turn_w = turn_weights_v2(fb2, st.sh, fb.descendants.astype(dtype),
-                                 cfg, B)
-    else:
-        # fused kernel: ~2x over the XLA chain on v5e (kernel-vs-XLA
-        # parity pinned by test_turn_weights_pallas_matches)
-        turn_w = turn_weights_v2_pallas(fb2, st.sh,
-                                        fb.descendants.astype(dtype),
-                                        cfg, B)
+    turn_w = turn_weights_v2(fb2, st.sh, fb.descendants.astype(dtype), cfg,
+                             B)
     hmask = haplo_update_mask(fb, cfg)
 
     def to_std(x):      # [M, X, R] -> [B, M, NS, S]
@@ -1025,9 +761,20 @@ def chromosome_scan_v2(fb: FamilyBatch, dists: jnp.ndarray,
     def to_std_f(x):    # [M, NS, R] -> [B, M, NS]
         return jnp.transpose(x[:, :, :B], (2, 0, 1))
 
-    coh = jnp.full((B, M, cfg.numslots), 0.5, dtype=dtype)
+    fw_pre, bw = to_std(fb2.fw_pre), to_std(fb2.bw)
+    fw_pre_f, bw_f = to_std_f(fb2.fw_pre_f), to_std_f(fb2.bw_f)
+    if with_coherence:
+        # the pairwise chain reads only the pre-emission forward tensors
+        lam = transition_eigenvalues(
+            cfg, interval_recomb(cfg, params, dists,
+                                 ratemat=ratemat)).astype(dtype)
+        fbres = FBResult(fw_pre=fw_pre, fw_post=fw_pre, bw=bw,
+                         fw_pre_f=fw_pre_f, fw_post_f=fw_pre_f, bw_f=bw_f)
+        coh = phase_coherence(fbres, build_blocks(fb, cfg, dtype=dtype), fb,
+                              cfg, lam)
+    else:
+        coh = jnp.full((B, M, cfg.numslots), 0.5, dtype=dtype)
     return ScanResult(total=total_r[:B], haplo_b12=b12, haplo_mask=hmask,
                       inf_accum=accum, pair=pair, turn_weight=turn_w,
-                      coherence=coh, fw_pre=to_std(fb2.fw_pre),
-                      bw=to_std(fb2.bw), fw_pre_f=to_std_f(fb2.fw_pre_f),
-                      bw_f=to_std_f(fb2.bw_f))
+                      coherence=coh, fw_pre=fw_pre, bw=bw,
+                      fw_pre_f=fw_pre_f, bw_f=bw_f)

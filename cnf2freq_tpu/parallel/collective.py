@@ -157,8 +157,8 @@ def make_sharded_scan_merged(cfg, params, mesh: Mesh,
                              with_coherence: bool = False,
                              with_recomb: bool = False):
     """The production scan+merge step under shard_map: each shard runs
-    the full single-chip program (including its Pallas kernels — legal
-    per shard, unlike pallas under bare GSPMD) on its slice of the
+    the full single-device program (including its Pallas kernels —
+    legal per shard, unlike Pallas under bare GSPMD) on its slice of the
     cohort, then psum completes the per-individual accumulator merge
     over the data axis.  The multi-chip form of
     engine.make_jitted_scan_merged; per-shard parity pinned by

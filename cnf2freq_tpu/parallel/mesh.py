@@ -6,7 +6,9 @@ non-compiling Boost.MPI path (cnF2freq.cpp:58-60).  Here scaling is one
 mechanism at every size: a ``jax.sharding.Mesh`` with the analysis units
 (individuals) on a ``data`` axis and a ``state`` axis available for
 state-space model parallelism; tensors are placed with NamedSharding and
-XLA inserts the ICI/DCN collectives.
+XLA inserts the collectives.  The mesh assumes no device topology: on
+GPUs joined all to all (NVLink) every device reaches every other at the
+same rate.
 
 Accumulator merges across shards (the reference's per-marker OpenMP locks
 and MPI reduce, cnF2freq.cpp:5265-5270, 6245-6255) disappear: the

@@ -1,35 +1,31 @@
-"""Multi-host (pod / pod-slice) execution.
+"""Multi-process execution.
 
 The reference's only multi-node story is an ifdef'd-out Boost.MPI loop —
 rank-0 broadcast of parameters, elementwise reduce of the accumulators,
 round-robin individual assignment (cnF2freq.cpp:5197-5242, 6245-6255);
-it does not even compile at HEAD.  The TPU-native replacement is the
-standard JAX multi-controller model: every host runs the same Driver
-program, `jax.distributed` wires the processes into one runtime, the
-mesh spans all chips, and the psum in
-``parallel.collective.make_sharded_scan_merged`` rides ICI within a
-slice and DCN across slices.  Host-side stages (flip optimisation,
-capped-GD updates) consume the replicated merged accumulators, so every
-host computes identical updates deterministically — no rank-0 special
-casing and no parameter broadcast is needed.
+it does not even compile at HEAD.  Here it is the standard JAX
+multi-controller model: every process runs the same Driver program,
+`jax.distributed` wires the processes into one runtime, the mesh spans
+every device, and the psum in
+``parallel.collective.make_sharded_scan_merged`` rides the interconnect.
+Host-side stages (flip optimisation, capped-GD updates) consume the
+replicated merged accumulators, so every process computes identical
+updates deterministically — no rank-0 special casing and no parameter
+broadcast is needed.
 
-Typical pod run::
+Typical run, one process per host::
 
     from cnf2freq_tpu.parallel.multihost import init_distributed, pod_mesh
-    init_distributed()                  # no-op on single host
+    init_distributed(coordinator="host0:1234", num_processes=n,
+                     process_id=i)
     drv = Driver(ped, dtype=np.float32, mesh=pod_mesh())
     drv.preprocess()
     drv.run(iterations)
     if jax.process_index() == 0:
         ...write outputs...
 
-Sizing (see docs/PERFORMANCE.md): the scan working set is ~6 copies of
-[B, M, 512] f32 per chip, so a 100k-individual cohort over a v5p-64
-slice (64 chips x 95 GiB) runs whole-cohort per chromosome at
-M <= ~3,000 with B_chip = 1,563; longer chromosomes stream marker
-blocks (Driver.marker_block).  Driver.batch_size="auto" already caps
-per-chip chunks by hbm_budget_bytes — set it to the per-chip budget,
-not the pod total.
+Driver.batch_size="auto" caps each device's chunk by the device's own
+memory (Driver._memory_budget), not the cluster's total.
 """
 
 from __future__ import annotations
@@ -49,10 +45,10 @@ def init_distributed(coordinator: Optional[str] = None,
                      process_id: Optional[int] = None) -> None:
     """Initialise the JAX multi-controller runtime.
 
-    On Cloud TPU pods the arguments come from the environment and
-    ``jax.distributed.initialize()`` needs no parameters.  A no-op when
-    the process group is already up or when running single-host with no
-    coordinator configured."""
+    ``coordinator`` (host:port; default $COORDINATOR_ADDRESS),
+    ``num_processes`` and ``process_id`` are passed to
+    ``jax.distributed.initialize``.  A no-op when the process group is
+    already up or when no coordinator is configured (single process)."""
     # must not query the backend here (jax.process_count() would
     # initialise XLA and make jax.distributed.initialize impossible);
     # inspect the distributed client state directly
@@ -64,14 +60,12 @@ def init_distributed(coordinator: Optional[str] = None,
         pass
     if coordinator is None and "COORDINATOR_ADDRESS" in os.environ:
         coordinator = os.environ["COORDINATOR_ADDRESS"]
+    if coordinator is None:
+        return
     try:
-        if coordinator is not None:
-            jax.distributed.initialize(coordinator_address=coordinator,
-                                       num_processes=num_processes,
-                                       process_id=process_id)
-        elif os.environ.get("TPU_WORKER_HOSTNAMES") or \
-                os.environ.get("MEGASCALE_COORDINATOR_ADDRESS"):
-            jax.distributed.initialize()
+        jax.distributed.initialize(coordinator_address=coordinator,
+                                   num_processes=num_processes,
+                                   process_id=process_id)
     except RuntimeError as e:
         # tolerate ONLY double initialisation (e.g. a launcher wrapper
         # beat us to it); anything else — unreachable coordinator, rank
@@ -82,7 +76,7 @@ def init_distributed(coordinator: Optional[str] = None,
 
 
 def pod_mesh(state: int = 1) -> Mesh:
-    """A data-parallel mesh over every chip of every host.
+    """A data-parallel mesh over every device of every process.
 
     ``jax.devices()`` is the global device list under the
     multi-controller runtime, so the same call shapes single-host and

@@ -23,9 +23,7 @@ def _setup(B=4, M=12, seed=5):
     cfg, params = ModelConfig(), RuntimeParams()
     fbj = fb.map(jnp.asarray)
     st = v2.prep_slots(fbj, jnp.float64)
-    R = st.nb * 1024
-    e = v2.emission_tiles(st, M, cfg, dtype=jnp.float64,
-                          interpret=True).reshape(M, 512, R)
+    e = v2.emissions_v2(st, cfg, jnp.float64)
     return e, dists, cfg, params, st
 
 
@@ -52,8 +50,7 @@ def test_blocked_chunk_matches_merged():
     dists = np.diff(ped.markerposes)
     rm = rate_matrix(cfg, params, M - 1)
 
-    pieces = v2.make_blocked_pieces(cfg, params, jnp.float64, NI,
-                                    interpret=True)
+    pieces = v2.make_blocked_pieces(cfg, params, jnp.float64, NI)
     turns = {}
 
     def consumer(off, w, hb_full, hc_full):

@@ -1,6 +1,6 @@
 """Sharded collective accumulator merge vs the unsharded result.
 
-The TPU replacement for the reference's per-marker OpenMP locks and MPI
+The replacement for the reference's per-marker OpenMP locks and MPI
 reduce (cnF2freq.cpp:5265-5270, 6245-6255) is segment-sum + XLA-inserted
 collectives (parallel/collective.py); sharding over the virtual 8-device
 mesh must be bit-compatible with the single-device merge."""

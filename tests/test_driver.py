@@ -174,16 +174,16 @@ def test_rate_matrix_feeds_scan():
     cfg, params = ModelConfig(), RuntimeParams()
     M = ped.num_markers
 
-    base = chromosome_scan(fb, dists, cfg, params, use_scan_v2=False)
+    base = chromosome_scan(fb, dists, cfg, params)
     rm_def = rate_matrix(cfg, params, M - 1)
-    same = chromosome_scan(fb, dists, cfg, params, use_scan_v2=False,
+    same = chromosome_scan(fb, dists, cfg, params,
                            ratemat=jnp.asarray(rm_def))
     np.testing.assert_allclose(np.asarray(same.total),
                                np.asarray(base.total), rtol=1e-12)
 
     actrec = np.full((2, M), -0.5)       # much hotter map than genrec
     rm_hot = rate_matrix(cfg, params, M - 1, actrec, 0)
-    hot = chromosome_scan(fb, dists, cfg, params, use_scan_v2=False,
+    hot = chromosome_scan(fb, dists, cfg, params,
                           ratemat=jnp.asarray(rm_hot))
     assert np.abs(np.asarray(hot.total) -
                   np.asarray(base.total)).max() > 1e-6
@@ -303,26 +303,36 @@ def test_batch_streaming_neutral():
                                    rtol=1e-8, atol=1e-11)
 
 
-def test_driver_scan_v2_interpret():
-    """The full production configuration — v2 scan pipeline with the
-    Pallas kernels (interpret mode on CPU), device merge, flip scorer —
-    drives one iteration end to end."""
-    import os
+def test_driver_scan_v2_interpret(monkeypatch):
+    """The GPU configuration — the feature-leading float32 scan with the
+    Triton sweep kernel (interpret mode), device merge, flip scorer —
+    drives one iteration end to end on a backend patched to "gpu"."""
+    import functools
 
-    os.environ["CNF2FREQ_SCAN_V2"] = "1"
-    try:
-        ped = simulate_f2(n_f2=3, n_markers=5, missing_rate=0.2, seed=2)
-        drv = Driver(ped)
-        drv.marker_bucket = 8
-        drv.preprocess()
-        info = drv.iterate(early=False)
-        assert np.isfinite(info["scalefactor"])
-        for n in ped.dous:
-            tab = drv.pair_tables[n]
-            assert tab.shape == (5, 2, 2)
-            assert np.isfinite(tab).all() and (tab >= 0).all()
-    finally:
-        del os.environ["CNF2FREQ_SCAN_V2"]
+    from cnf2freq_tpu.ops import dispatch, scan_v2
+
+    calls = []
+    real = scan_v2.chromosome_scan_v2
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs["plan"])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(dispatch, "backend", lambda: "gpu")
+    monkeypatch.setattr(scan_v2, "chromosome_scan_v2", spy)
+    monkeypatch.setattr(scan_v2, "fb_sweeps_v2_triton", functools.partial(
+        scan_v2.fb_sweeps_v2_triton, interpret=True))
+    ped = simulate_f2(n_f2=3, n_markers=5, missing_rate=0.2, seed=2)
+    drv = Driver(ped, dtype=np.float32)
+    drv.marker_bucket = 8
+    drv.preprocess()
+    info = drv.iterate(early=False)
+    assert calls and calls[0] == dispatch.ScanPlan("v2", "triton")
+    assert np.isfinite(info["scalefactor"])
+    for n in ped.dous:
+        tab = drv.pair_tables[n]
+        assert tab.shape == (5, 2, 2)
+        assert np.isfinite(tab).all() and (tab >= 0).all()
 
 
 def test_driver_extended_state_space_gates():
@@ -373,3 +383,21 @@ def test_update_row_chunking_equivalence():
     np.testing.assert_allclose(results[0][2], results[1][2],
                                rtol=0, atol=0)
     assert np.array_equal(results[0][3], results[1][3])
+
+
+def test_auto_chunk_follows_device_memory(monkeypatch):
+    """batch_size="auto" sizes chunks from the device's allocatable
+    memory, in whole kernel lane blocks."""
+    from cnf2freq_tpu.ops import dispatch
+
+    ped = simulate_f2(n_f2=3, n_markers=5, seed=2)
+    drv = Driver(ped, dtype=np.float32)
+    per_unit = 10 * 192 * 512 * 4
+    for limit, want in [(2 * 100 * per_unit + 7, 96),
+                        (2 * 5000 * per_unit, 1000),
+                        (per_unit, dispatch.LANE_BLOCK)]:
+        monkeypatch.setattr(dispatch, "device_memory_bytes",
+                            lambda limit=limit: limit)
+        assert drv._chunk_size(1000, 192) == want
+    monkeypatch.setattr(dispatch, "device_memory_bytes", lambda: None)
+    assert drv._chunk_size(1000, 192) == 1000       # the CPU's 8 GiB

@@ -364,8 +364,7 @@ def test_selfing_coherence_selfgen0_reduces_to_standard():
     fb2j = fb2.map(jnp.asarray)
     blocks_std = build_blocks(fb2j, cfg_std)
     e_std = assemble_e_all(blocks_std, cfg_std)
-    fbres_std = forward_backward(e_std, dists, cfg_std, params,
-                                 use_pallas=False)
+    fbres_std = forward_backward(e_std, dists, cfg_std, params)
     lam = transition_eigenvalues(
         cfg_std, interval_recomb(cfg_std, params, dists))
     for slot in (0, 1, 4):

@@ -256,7 +256,7 @@ def test_ng2_coherence_matches_bruteforce():
     dists = jnp.asarray(np.diff(ped.markerposes))
     froot, P2, top, fat = ng2_blocks(fbj, CFG2)
     e = assemble_e_ng2(froot, P2, top, fat, fbj, CFG2)
-    fbres = forward_backward(e, dists, CFG2, params, use_pallas=False)
+    fbres = forward_backward(e, dists, CFG2, params)
     coh_fn = make_jitted_coherence(CFG2, params)
 
     def phase_bit(slot, g, f2, s):

@@ -3,7 +3,8 @@
 The golden scalar engine implements the reference's SELFING semantics
 (collapsed HBD pair cnF2freq.cpp:1122-1189, selfprec transitions
 cnF2freq.cpp:2316-2364, selfingfactors prior cnF2freq.cpp:2050-2063); the
-TPU module (models/selfing.py) must agree to near machine precision.
+tensorised module (models/selfing.py) must agree to near machine
+precision.
 """
 
 import numpy as np
